@@ -1,0 +1,444 @@
+"""Wrappers of the four CUDA kernels of the vision-only step, their plain
+PyTorch versions, and their launch counters.
+
+| kernel      | CUDA source           | replaces (rebvio_tpu/ops/pallas_kernels.py) |
+|-------------|-----------------------|---------------------------------------------|
+| att_flood   | csrc/flood.cu         | _att_flood (K1)                             |
+| try_vel     | csrc/try_vel.cu       | try_vel_math_pallas (K2; also try_vel_pallas)|
+| tube_match  | csrc/tube_match.cu    | tube_match_pallas (K4)                      |
+| reg_ekf     | csrc/reg_ekf.cu       | reg_ekf_pallas (K5)                         |
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty`` and launches on the current stream.  A tensor
+on the CPU goes to the plain version beside it (same inputs, same
+outputs); a CUDA tensor launches the kernel or raises.  ``LAUNCHES[name]``
+counts the wrapper's kernel launches (a multi-kernel call counts once).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from rebvio_tpu_torch.ops import _build
+
+LAUNCHES = {"att_flood": 0, "try_vel": 0, "tube_match": 0, "reg_ekf": 0}
+
+f32, i32 = torch.float32, torch.int32
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(*ts) -> bool:
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return False
+    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
+        raise ValueError(f"kernel inputs on mixed devices: {[str(t.device) for t in ts]}")
+    return True
+
+
+def _check(t: torch.Tensor, dtype, shape, name):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _full(like: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a tensor: ``x / _full(x, c)`` is a true division on every
+    device (PyTorch's CUDA division by a Python scalar multiplies by the
+    rounded reciprocal, which the kernels do not)."""
+    return torch.full_like(like, value)
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+# --------------------------------------------------------------------------
+# K1: jump flood
+
+
+def flood_layout(rows: int, search_range: int):
+    from rebvio_tpu_torch.ops.distance_field import flood_pad
+
+    pad = flood_pad(search_range)
+    return pad, rows + pad
+
+
+def att_flood(stack: torch.Tensor, search_range: int, rows: int, cols: int,
+              scale: int) -> torch.Tensor:
+    """Jump flood over the seeded region stack ``[5*(rows+PAD), cols]``;
+    returns the ``[8, rows*cols]`` attribute planes (see csrc/flood.cu)."""
+    if not _on_cuda(stack):
+        return att_flood_plain(stack, search_range, rows, cols, scale)
+    pad, Rp = flood_layout(rows, search_range)
+    _check(stack, f32, (5 * Rp, cols), "att_flood stack")
+    lib = _build.load()
+    a = torch.empty_like(stack)
+    b = torch.empty_like(stack)
+    out = torch.empty((8, rows * cols), dtype=f32, device=stack.device)
+    err = lib.rk_att_flood(_ptr(stack), _ptr(a), _ptr(b), _ptr(out), rows, cols, pad,
+                           search_range, float(scale), _stream(stack))
+    _raise_on(err, "att_flood")
+    LAUNCHES["att_flood"] += 1
+    return out
+
+
+def att_flood_plain(stack, search_range: int, rows: int, cols: int, scale: int):
+    """_att_flood as rolls of the whole stack and best-of-9 selects."""
+    from rebvio_tpu_torch.ops.distance_field import flood_steps
+
+    pad, Rp = flood_layout(rows, search_range)
+    dev = stack.device
+    yy = torch.arange(Rp, dtype=f32, device=dev)[:, None]
+    xx = torch.arange(cols, dtype=f32, device=dev)[None, :]
+    row_ok = (torch.arange(Rp, device=dev) < rows)[:, None]
+
+    def d2_of(stk):
+        a = yy - stk[0:Rp]
+        b = xx - stk[Rp:2 * Rp]
+        return a * a + b * b
+
+    st = stack
+    bd2 = d2_of(st)
+    for s in flood_steps(search_range):
+        best, best_d2 = st, bd2
+        for dy in (-s, 0, s):
+            ry = torch.roll(st, dy, 0) if dy else st
+            for dx in (-s, 0, s):
+                if dy == 0 and dx == 0:
+                    continue
+                cand = torch.roll(ry, dx, 1) if dx else ry
+                cd2 = d2_of(cand)
+                better = (cd2 < best_d2) & row_ok
+                best = torch.where(better.repeat(5, 1), cand, best)
+                best_d2 = torch.where(better, cd2, best_d2)
+        st, bd2 = best, best_d2
+    gx = st[3 * Rp:3 * Rp + rows]
+    gy = st[4 * Rp:4 * Rp + rows]
+    bd2r = bd2[:rows]
+    idf = torch.where(bd2r <= float(search_range * search_range),
+                      st[2 * Rp:2 * Rp + rows], -1.0)
+    out = torch.stack([torch.zeros_like(bd2r), bd2r, idf, gx, gy,
+                       torch.sqrt(gx * gx + gy * gy),
+                       st[Rp:Rp + rows] * float(scale), st[0:rows] * float(scale)])
+    return out.reshape(8, rows * cols)
+
+
+# --------------------------------------------------------------------------
+# K2: fused tryVel pass
+
+
+class TryVelGeom(NamedTuple):
+    """Static geometry and thresholds of a tryVel pass."""
+
+    H: int
+    W: int
+    field_scale: int
+    fm: float
+    cx: float
+    cy: float
+    R: float          # search range (saturation residual)
+    rw: float         # Huber reweight distance
+    mthr: float       # gradient-similarity threshold
+
+
+def try_vel(pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att, g: TryVelGeom):
+    """One tryVel pass (csrc/try_vel.cu).  Returns (score [], JtJ [3,3],
+    JtF [3], residuals [K], match_id_forward [K] int32)."""
+    ins = (pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att)
+    if not _on_cuda(*ins):
+        return try_vel_plain(*ins, g)
+    K = rho.shape[0]
+    N = att.shape[1]
+    for t, shape, name in ((pos_img, (K, 2), "pos_img"), (rho, (K,), "rho"),
+                           (sigma_rho, (K,), "sigma_rho"), (grad, (K, 2), "grad"),
+                           (use_f, (K,), "use_f"), (residuals, (K,), "residuals"),
+                           (vel, (3,), "vel"), (att, (8, N), "att")):
+        _check(t, f32, shape, "try_vel " + name)
+    lib = _build.load()
+    dev = rho.device
+    partials = torch.empty((lib.rk_try_vel_blocks(K), 11), dtype=f32, device=dev)
+    G = torch.empty((4, 4), dtype=f32, device=dev)
+    score = torch.empty((), dtype=f32, device=dev)
+    res = torch.empty((K,), dtype=f32, device=dev)
+    mif = torch.empty((K,), dtype=i32, device=dev)
+    err = lib.rk_try_vel(*(_ptr(t) for t in ins), K, N, g.H, g.W, g.field_scale,
+                         g.fm, g.cx, g.cy, g.R, g.rw, g.mthr, _ptr(partials), _ptr(G),
+                         _ptr(score), _ptr(res), _ptr(mif), _stream(rho))
+    _raise_on(err, "try_vel")
+    LAUNCHES["try_vel"] += 1
+    return score, G[:3, :3], G[:3, 3], res, mif
+
+
+def try_vel_plain(pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att, g: TryVelGeom):
+    """tracker.try_vel's attribute path (core.cpp:78-148) in torch."""
+    use = use_f > 0.5
+    weight = torch.where(residuals > g.rw, _full(residuals, g.rw) / residuals, 1.0)
+    inv_sr = 1.0 / torch.where(sigma_rho > 0, sigma_rho, 1.0)
+    z_p = 1.0 / torch.where(rho != 0, rho, 1e-20) + vel[2]
+    front = z_p > 0.0
+    rho_p = 1.0 / torch.where(front, z_p, 1.0)
+    p_x = rho_p * (vel[0] * g.fm - vel[2] * pos_img[:, 0]) + pos_img[:, 0]
+    p_y = rho_p * (vel[1] * g.fm - vel[2] * pos_img[:, 1]) + pos_img[:, 1]
+    p_xc = p_x + g.cx
+    p_yc = p_y + g.cy
+    x = torch.floor(p_xc + 0.5).to(torch.int64)
+    y = torch.floor(p_yc + 0.5).to(torch.int64)
+    inb = (x >= 1) & (y >= 1) & (x < g.W - 1) & (y < g.H - 1)
+    lookup_ok = use & front & inb
+    xs = torch.clamp(x, 0, g.W - 1)
+    ys = torch.clamp(y, 0, g.H - 1)
+    s = g.field_scale
+    Wf = (g.W + s - 1) // s
+    fidx = (ys // s) * Wf + xs // s if s > 1 else ys * g.W + xs
+    row8 = att[:, fidx]
+    fid = torch.where(lookup_ok, row8[2].to(i32), -1)
+    gNx, gNy, gnN, posNx, posNy = row8[3], row8[4], row8[5], row8[6], row8[7]
+    dot = gNx * grad[:, 0] + gNy * grad[:, 1]
+    n2 = gnN * gnN
+    matched = (fid >= 0) & (torch.abs(dot - n2) <= g.mthr * n2)
+    gsafe = torch.where(gnN > 0, gnN, 1.0)
+    ux = gNx / gsafe
+    uy = gNy / gsafe
+    fi = (p_xc - posNx) * ux + (p_yc - posNy) * uy
+    f = torch.where(matched, fi * inv_sr, g.R * inv_sr) * weight
+    score = torch.sum(torch.where(use, f * f, 0.0))
+    m = matched & use
+    df_dx = torch.where(m, ux * inv_sr, 0.0)
+    df_dy = torch.where(m, uy * inv_sr, 0.0)
+    jx = rho_p * g.fm * df_dx * weight
+    jy = rho_p * g.fm * df_dy * weight
+    jz = -rho_p * (p_x * df_dx + p_y * df_dy) * weight
+    Jm = torch.stack([jx, jy, jz, torch.where(m, f, 0.0)], dim=-1)
+    G = Jm.T @ Jm
+    res = torch.where(m, torch.abs(fi), residuals)
+    mif = torch.where(m, fid, -1)
+    return score, G[:3, :3], G[:3, 3], res, mif
+
+
+# --------------------------------------------------------------------------
+# K4: tube matcher
+
+
+class TubeGeom(NamedTuple):
+    """Static geometry and gate thresholds of the tube matcher."""
+
+    P: int            # probes per keyline
+    H: int
+    W: int
+    field_scale: int
+    pum: float        # pixel uncertainty of a match (tube half-width)
+    cang_min: float   # cos of the angle gate
+    norm_thr: float   # gradient-norm gate
+
+
+TUBE_PLANES = ("tx", "ty", "pi0x", "pi0y", "dq_min", "dq_max", "dq_rho", "nt_eff",
+               "sigma2_t", "ngx", "ngy", "ngn", "valid")
+TUBE_OUT = ("found", "match_id", "rho", "sigma_rho", "grad_x", "grad_y", "grad_norm",
+            "seed_x", "seed_y", "matches", "kf", "prio")
+
+
+def tube_match(kl, att, dyn, M2, g: TubeGeom) -> torch.Tensor:
+    """Probe, gather, gate and pick the winner for every new keyline
+    (csrc/tube_match.cu).
+
+    kl: [13, K] per-keyline planes (TUBE_PLANES); att: the old map's [8, N]
+    field; dyn: [4, K] old-map (rho, sigma_rho, matches, keyframe id) with
+    the counters as exact f32; M2: [2, 2] gradient replay matrix.
+    Returns [12, K] (TUBE_OUT)."""
+    if not _on_cuda(kl, att, dyn, M2):
+        return tube_match_plain(kl, att, dyn, M2, g)
+    K = kl.shape[1]
+    N = att.shape[1]
+    _check(kl, f32, (len(TUBE_PLANES), K), "tube_match kl")
+    _check(att, f32, (8, N), "tube_match att")
+    _check(dyn, f32, (4, K), "tube_match dyn")
+    _check(M2, f32, (2, 2), "tube_match M2")
+    if g.P < 2:
+        raise ValueError("tube_match needs at least 2 probes")
+    lib = _build.load()
+    out = torch.empty((len(TUBE_OUT), K), dtype=f32, device=kl.device)
+    err = lib.rk_tube_match(_ptr(kl), _ptr(att), _ptr(dyn), _ptr(M2), K, N, g.P, g.H, g.W,
+                            g.field_scale, g.pum, g.cang_min, g.norm_thr, _ptr(out),
+                            _stream(kl))
+    _raise_on(err, "tube_match")
+    LAUNCHES["tube_match"] += 1
+    return out
+
+
+def tube_match_plain(kl, att, dyn, M2, g: TubeGeom) -> torch.Tensor:
+    """tube_match_pallas plus the probe projection and both gathers, as
+    [P, K] tensors."""
+    K = kl.shape[1]
+    dev = kl.device
+    (tx, ty, pi0x, pi0y, dq_min, dq_max, dq_rho, nt_eff, sigma2_t,
+     ngx, ngy, ngn, valid_f) = kl
+    valid = valid_f > 0.5
+    lam = torch.arange(g.P, dtype=f32, device=dev)[:, None]
+    lam = lam / _full(lam, g.P - 1)
+    t_probe = dq_min + (dq_max - dq_min) * lam                # [P,K]
+    px = tx * t_probe + pi0x
+    py = ty * t_probe + pi0y
+    col = torch.clamp(torch.floor(px + 0.5).to(torch.int64), 0, g.W - 1)
+    row = torch.clamp(torch.floor(py + 0.5).to(torch.int64), 0, g.H - 1)
+    inb = (px >= -0.5) & (px < g.W - 0.5) & (py >= -0.5) & (py < g.H - 0.5)
+    s = g.field_scale
+    Wf = (g.W + s - 1) // s
+    pidx = (row // s) * Wf + col // s if s > 1 else row * g.W + col
+    a = att[:, pidx]                                          # [8,P,K]
+    oid, g0x, g0y, gn_old, sx, sy = a[2], a[3], a[4], a[5], a[6], a[7]
+    gx_r = g0x * M2[0, 0] + g0y * M2[0, 1]
+    gy_r = g0x * M2[1, 0] + g0y * M2[1, 1]
+    os_ = torch.clamp(torch.where(inb, oid.to(torch.int64), -1), 0, K - 1)
+    d = dyn[:, os_]                                           # [4,P,K]
+    rho_o, sr_o = d[0], d[1]
+    has = inb & (oid >= 0)
+
+    dxs = sx - pi0x
+    dys = sy - pi0y
+    t_eff = dxs * tx + dys * ty
+    perp = torch.abs(-dxs * ty + dys * tx)
+    g_tube = perp <= g.pum
+    g_win = (t_eff >= dq_min) & (t_eff <= dq_max)
+    gdot = gx_r * ngx + gy_r * ngy
+    den = torch.where(gn_old * ngn > 0, gn_old * ngn, 1.0)
+    g_ang = gdot / den >= g.cang_min
+    g_norm = torch.abs(gn_old / torch.where(ngn > 0, ngn, 1.0) - 1.0) <= g.norm_thr
+    v_rho_dr = g.pum * g.pum + sr_o * sr_o * (nt_eff * nt_eff) + sigma2_t * rho_o * rho_o
+    resid = t_eff - nt_eff * rho_o
+    g_depth = ~(resid * resid > v_rho_dr)
+    ok = valid & has & g_tube & g_win & g_ang & g_norm & g_depth
+    prio = torch.abs(t_eff - dq_rho)
+    prio = torch.where(ok & ~torch.isnan(prio), prio, 1e9)   # the kernel's strict < skips NaN
+    best = torch.argmin(prio, dim=0)        # first minimum: the first probe wins ties
+    payload = torch.stack([oid, rho_o, sr_o, gx_r, gy_r, gn_old, sx, sy, d[2], d[3], prio])
+    win = torch.gather(payload, 1, best[None, None, :].expand(11, 1, K))[:, 0]
+    best_prio = win[10]
+    found = best_prio < 1e9
+    payload_out = torch.where(found, win[:10], 0.0)
+    out = torch.cat([found.to(f32)[None], torch.where(found, payload_out[0], -1.0)[None],
+                     payload_out[1:], best_prio[None]])
+    return out
+
+
+# --------------------------------------------------------------------------
+# K5: regularization + depth EKF
+
+
+class RegEkfParams(NamedTuple):
+    threshold: float   # regularization threshold (EdgeMapConfig)
+    q_abs2: float      # reshape_q_abs ** 2
+    pu2: float         # pixel_uncertainty ** 2
+    fm: float
+
+
+def reg_ekf(rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, match_id,
+            pos_img, match_pos_img, match_grad, match_grad_norm, vel, p: RegEkfParams):
+    """regularize_1iter then the inverse-depth EKF (csrc/reg_ekf.cu).
+    Returns (rho, sigma_rho)."""
+    ins = (rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, match_id,
+           pos_img, match_pos_img, match_grad, match_grad_norm, vel)
+    if not _on_cuda(*ins):
+        return reg_ekf_plain(*ins, p)
+    K = rho.shape[0]
+    for t, dtype, shape, name in (
+            (rho, f32, (K,), "rho"), (sigma_rho, f32, (K,), "sigma_rho"),
+            (grad, f32, (K, 2), "grad"), (grad_norm, f32, (K,), "grad_norm"),
+            (id_next, i32, (K,), "id_next"), (id_prev, i32, (K,), "id_prev"),
+            (valid, torch.bool, (K,), "valid"), (match_id, i32, (K,), "match_id"),
+            (pos_img, f32, (K, 2), "pos_img"), (match_pos_img, f32, (K, 2), "match_pos_img"),
+            (match_grad, f32, (K, 2), "match_grad"),
+            (match_grad_norm, f32, (K,), "match_grad_norm"), (vel, f32, (3,), "vel")):
+        _check(t, dtype, shape, "reg_ekf " + name)
+    lib = _build.load()
+    rho_out = torch.empty_like(rho)
+    sr_out = torch.empty_like(sigma_rho)
+    err = lib.rk_reg_ekf(*(_ptr(t) for t in ins), K, p.threshold, p.q_abs2, p.pu2, p.fm,
+                         _ptr(rho_out), _ptr(sr_out), _stream(rho))
+    _raise_on(err, "reg_ekf")
+    LAUNCHES["reg_ekf"] += 1
+    return rho_out, sr_out
+
+
+def reg_ekf_plain(rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, match_id,
+                  pos_img, match_pos_img, match_grad, match_grad_norm, vel, p: RegEkfParams):
+    """regularize_plain composed with ekf_plain (the pipeline's order)."""
+    rho1, sr1 = regularize_plain(rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid,
+                                 p.threshold)
+    return ekf_plain(rho1, sr1, valid, match_id, pos_img, match_pos_img, match_grad,
+                     match_grad_norm, vel, p.q_abs2, p.pu2, p.fm)
+
+
+def regularize_plain(rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, thr: float):
+    """One Jacobi depth-regularization pass (regularize_1iter,
+    edge_map.cpp:220-259): every update reads pre-pass values."""
+    K = rho.shape[0]
+    has_nb = valid & (id_next >= 0) & (id_prev >= 0)
+    nx = torch.clamp(id_next, 0, K - 1).to(torch.int64)
+    pv = torch.clamp(id_prev, 0, K - 1).to(torch.int64)
+    rn, rp = rho[nx], rho[pv]
+    sn, sp = sigma_rho[nx], sigma_rho[pv]
+    gn_, gp_ = grad[nx], grad[pv]
+    gnn, gnp_ = grad_norm[nx], grad_norm[pv]
+    test1 = (rn - rp) * (rn - rp) <= (sn * sn + sp * sp)
+    denom = torch.where(gnn * gnp_ > 0, gnn * gnp_, 1.0)
+    alpha = (gn_[:, 0] * gp_[:, 0] + gn_[:, 1] * gp_[:, 1]) / denom
+    apply = has_nb & test1 & (alpha >= thr)
+    alpha2 = (alpha - thr) / _full(alpha, 1.0 - thr)
+    alpha2 = alpha2 / (torch.abs(rn - rp) / torch.where(sn + sp > 0, sn + sp, 1.0) + 1.0)
+    sr_safe = torch.where(sigma_rho > 0, sigma_rho, 1.0)
+    wr = 1.0 / (sr_safe * sr_safe)
+    wrn = alpha2 / torch.where(sn > 0, sn * sn, 1.0)
+    wrp = alpha2 / torch.where(sp > 0, sp * sp, 1.0)
+    wsum = wr + wrn + wrp
+    rho1 = torch.where(apply, (rho * wr + rn * wrn + rp * wrp) / wsum, rho)
+    sr1 = torch.where(apply, (sigma_rho * wr + sn * wrn + sp * wrp) / wsum, sigma_rho)
+    return rho1, sr1
+
+
+def ekf_plain(rho, sigma_rho, valid, match_id, pos_img, match_pos_img, match_grad,
+              match_grad_norm, vel, q_abs2: float, pu2: float, fm: float):
+    """Per-keyline scalar inverse-depth EKF (updateInverseDepthARLU,
+    core.cpp:417-456) with its clamps and NaN reset."""
+    from rebvio_tpu_torch.types import RHO_INIT, RHO_MAX, RHO_MIN
+
+    m = valid & (match_id >= 0)
+    gn = torch.where(match_grad_norm > 0, match_grad_norm, 1.0)
+    ux = match_grad[:, 0] / gn
+    uy = match_grad[:, 1] / gn
+    qx, qy = pos_img[:, 0], pos_img[:, 1]
+    q0x, q0y = match_pos_img[:, 0], match_pos_img[:, 1]
+    Y = ux * (qx - q0x) + uy * (qy - q0y)
+    Hm = ux * (vel[0] * fm - vel[2] * q0x) + uy * (vel[1] * fm - vel[2] * q0y)
+    v_rho = sigma_rho * sigma_rho
+    rho_p = 1.0 / (1.0 / torch.where(rho != 0, rho, 1e-20) + vel[2])
+    F1 = 1.0 / (1.0 + rho * vel[2])
+    F2 = F1 * F1
+    p_p = F2 * v_rho * F2 + q_abs2
+    e = Y - Hm * rho_p
+    S = Hm * p_p * Hm + pu2
+    Kk = p_p * Hm / S
+    rho_new = rho_p + Kk * e
+    sigma_new = torch.sqrt((1.0 - Kk * Hm) * p_p)
+    sigma_new = torch.where(rho_new < RHO_MIN, sigma_new + (RHO_MIN - rho_new), sigma_new)
+    rho_new = torch.clamp(rho_new, RHO_MIN, RHO_MAX)
+    bad = ~torch.isfinite(rho_new) | ~torch.isfinite(sigma_new)
+    rho_new = torch.where(bad, RHO_INIT, rho_new)
+    sigma_new = torch.where(bad, RHO_MAX, sigma_new)
+    return torch.where(m, rho_new, rho), torch.where(m, sigma_new, sigma_rho)

@@ -1,0 +1,149 @@
+"""Tracker core: the translation LM against the attribute field, the 6-DoF
+linear refinement and the per-keyline depth update (rebvio_tpu/ops/
+tracker.py; reference core.cpp).  Every tryVel pass is kernel K2
+(kernels.try_vel) and the depth stage is kernel K5 (kernels.reg_ekf)."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from rebvio_tpu_torch import types as T
+from rebvio_tpu_torch.configs import CameraConfig, CoreConfig
+from rebvio_tpu_torch.geometry import linalg
+from rebvio_tpu_torch.ops import kernels
+from rebvio_tpu_torch.ops.matching import estimate_quantile
+
+f32 = torch.float32
+
+
+def _use_mask(old: T.EdgeMap, sigma_rho_min) -> torch.Tensor:
+    """Participation gate of tryVel (core.cpp:88-91) as a float mask."""
+    use = old.valid & (old.sigma_rho <= sigma_rho_min)
+    use = use & ((old.threshold <= 0.0) | (old.grad_norm >= old.threshold))
+    return use.to(f32)
+
+
+def try_vel(old: T.EdgeMap, att: torch.Tensor, vel, sigma_rho_min, residuals,
+            cfg: CoreConfig, cam: CameraConfig, field_scale: int = 1):
+    """One residual/Jacobian pass of the translation tracker (core.cpp:78-148)
+    against the new map's ``[8, N]`` attribute field.  Returns (score, JtJ,
+    JtF, residuals, match_id_forward)."""
+    H, W = old.kl_id_img.shape
+    geom = _try_vel_geom(H, W, field_scale, cfg, cam)
+    return kernels.try_vel(old.pos_img.contiguous(), old.rho, old.sigma_rho,
+                           old.grad.contiguous(), _use_mask(old, sigma_rho_min), residuals,
+                           vel, att, geom)
+
+
+def _try_vel_geom(H, W, field_scale, cfg: CoreConfig, cam: CameraConfig):
+    return kernels.TryVelGeom(H=H, W=W, field_scale=field_scale, fm=cam.fm, cx=cam.cx,
+                              cy=cam.cy, R=float(cfg.search_range),
+                              rw=float(cfg.reweight_distance),
+                              mthr=float(cfg.match_threshold))
+
+
+def minimize_vel(old: T.EdgeMap, att: torch.Tensor, vel0: torch.Tensor, cfg: CoreConfig,
+                 cam: CameraConfig, field_scale: int = 1):
+    """Levenberg-Marquardt translation estimation (core.cpp:150-189).
+
+    Returns (vel, Rvel, old map with the forward matches, score).  The
+    forward matches and residuals are those of the LAST pass, accepted or
+    not, as in the reference.  The loop runs on the device without host
+    round trips: each accept decision is a select."""
+    H, W = old.kl_id_img.shape
+    geom = _try_vel_geom(H, W, field_scale, cfg, cam)
+    sigma_rho_min = estimate_quantile(old, cfg.quantile_cutoff, cfg.quantile_num_bins)
+    use_f = _use_mask(old, sigma_rho_min)
+    pos_img = old.pos_img.contiguous()
+    grad = old.grad.contiguous()
+    att = att.contiguous()
+
+    def pass_(vel, residuals):
+        return kernels.try_vel(pos_img, old.rho, old.sigma_rho, grad, use_f, residuals,
+                               vel, att, geom)
+
+    residuals = torch.zeros((old.kmax,), dtype=f32, device=old.rho.device)
+    F, JtJ, JtF, residuals, mif = pass_(vel0, residuals)
+    vel = vel0
+    u = 1e-3 * torch.max(JtJ)
+    v = torch.tensor(2.0, dtype=f32, device=vel.device)
+    eye = torch.eye(3, dtype=f32, device=vel.device)
+    for _ in range(cfg.iterations):
+        h = linalg.invert3(JtJ + eye * u) @ (-JtF)
+        vel_new = vel + h
+        score2, JtJ2, JtF2, residuals, mif = pass_(vel_new, residuals)
+        gain = (F - score2) / (0.5 * torch.dot(h, u * h - JtF))
+        accept = gain > 0.0
+        F = torch.where(accept, score2, F)
+        vel = torch.where(accept, vel_new, vel)
+        JtJ = torch.where(accept, JtJ2, JtJ)
+        JtF = torch.where(accept, JtF2, JtF)
+        t = 2.0 * gain - 1.0
+        u = torch.where(accept, u * torch.clamp(1.0 - t * t * t, min=0.33), u * v)
+        v = torch.where(accept, 2.0, v * 2.0)
+    Rvel = linalg.invert3(JtJ)
+    return vel, Rvel, old.replace(match_id_forward=mif), F
+
+
+def ext_rot_vel(new: T.EdgeMap, vel: torch.Tensor, cfg: CoreConfig,
+                cam: CameraConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Linearized 6-DoF refinement from the forward matches
+    (core.cpp:191-261).  Returns (X, Wx = JtJ)."""
+    fm = cam.fm
+    m = new.valid & (new.match_id >= 0)
+    gn_safe = torch.where(new.grad_norm > 0, new.grad_norm, 1.0)
+    u_x = new.grad[:, 0] / gn_safe
+    u_y = new.grad[:, 1] / gn_safe
+    rho_t = 1.0 / (1.0 / torch.where(new.rho != 0, new.rho, 1e-20) + vel[2])
+    mpx, mpy = new.match_pos_img[:, 0], new.match_pos_img[:, 1]
+    qtx = mpx + rho_t * (vel[0] * fm - vel[2] * mpx)
+    qty = mpy + rho_t * (vel[1] * fm - vel[2] * mpy)
+    q_x = new.pos_img[:, 0]
+    q_y = new.pos_img[:, 1]
+    phi = torch.stack([
+        u_x * rho_t * fm,
+        u_y * rho_t * fm,
+        u_x * (-rho_t * q_x) + u_y * (-rho_t * q_y),
+        -u_x * q_x * q_y / fm - u_y * (fm + q_y * q_y / fm),
+        u_y * q_x * q_y / fm + u_x * (fm + q_x * q_x / fm),
+        -u_x * q_y + u_y * q_x,
+    ], dim=-1)
+    Y = u_x * (q_x - qtx) + u_y * (q_y - qty)
+    dqvel = u_x * (vel[0] * fm - vel[2] * mpx) + u_y * (vel[1] * fm - vel[2] * mpy)
+    s_y = torch.sqrt((new.sigma_rho * new.sigma_rho) * (dqvel * dqvel)
+                     + cfg.pixel_uncertainty ** 2)
+    w = torch.where(torch.abs(Y) > cfg.reweight_distance,
+                    torch.abs(Y) / cfg.reweight_distance, 1.0)
+    scale = 1.0 / (s_y * w)
+    phi = torch.where(m[:, None], phi * scale[:, None], 0.0)
+    Y = torch.where(m, Y * scale, 0.0)
+    A = torch.cat([phi, Y[:, None]], dim=-1)
+    G = A.T @ A
+    JtJ = G[:6, :6]
+    JtF = G[:6, 6]
+    return linalg.sym_solve(JtJ, JtF), JtJ
+
+
+def regularize_and_update_depth(em: T.EdgeMap, vel: torch.Tensor, threshold: float,
+                                cfg: CoreConfig, cam: CameraConfig) -> T.EdgeMap:
+    """regularize_1iter + updateInverseDepthARLU as one stage (kernel K5)."""
+    p = kernels.RegEkfParams(threshold=float(threshold), q_abs2=cfg.reshape_q_abs ** 2,
+                             pu2=float(cfg.pixel_uncertainty) ** 2, fm=cam.fm)
+    rho, sr = kernels.reg_ekf(em.rho, em.sigma_rho, em.grad.contiguous(), em.grad_norm,
+                              em.id_next, em.id_prev, em.valid, em.match_id,
+                              em.pos_img.contiguous(), em.match_pos_img.contiguous(),
+                              em.match_grad.contiguous(), em.match_grad_norm,
+                              vel.contiguous(), p)
+    return em.replace(rho=rho, sigma_rho=sr)
+
+
+def update_inverse_depth(em: T.EdgeMap, vel: torch.Tensor, cfg: CoreConfig,
+                         cam: CameraConfig) -> T.EdgeMap:
+    """Per-keyline scalar inverse-depth EKF (core.cpp:417-456)."""
+    rho, sr = kernels.ekf_plain(em.rho, em.sigma_rho, em.valid, em.match_id, em.pos_img,
+                                em.match_pos_img, em.match_grad, em.match_grad_norm, vel,
+                                cfg.reshape_q_abs ** 2, float(cfg.pixel_uncertainty) ** 2,
+                                cam.fm)
+    return em.replace(rho=rho, sigma_rho=sr)

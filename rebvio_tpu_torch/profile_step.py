@@ -1,0 +1,104 @@
+"""Where the time of the vision-only step goes on the GPU.
+
+    python -m rebvio_tpu_torch.profile_step [--frames 8] [--out FILE]
+
+Runs the parity-profile VO slice (752x480, 16000 keylines, 8 tube probes)
+over synthetic seed 0: two warm-up frames, then ``--frames`` frames under
+``torch.profiler``.  Prints one JSON line: the wall time per frame, the
+device's busy and idle share of that wall time (union of the kernel
+intervals), the device time per frame of each kernel name (top 12), and
+the share of the four ported kernels.  Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+
+from rebvio_tpu_torch.configs import CameraConfig, PipelineConfig
+from rebvio_tpu_torch.data import synthetic
+from rebvio_tpu_torch.runner import VioRunner
+
+# kernel names (substrings of the device symbols) of the ported kernels
+PORTED = {"att_flood": ("flood_step", "flood_finish"),
+          "try_vel": ("try_vel_pass", "try_vel_sum"),
+          "tube_match": ("tube_match",),
+          "reg_ekf": ("reg_ekf",)}
+
+
+def _union_us(intervals):
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a GPU (torch.cuda.is_available() is False)")
+
+    cfg = PipelineConfig(use_imu=False)
+    n = args.frames + 2
+    seq = synthetic.generate(CameraConfig(), n_frames=n, seed=0)
+    runner = VioRunner(cfg, device="cuda")
+
+    def frame(i):
+        runner.process_frame(seq.images[i], int(seq.ts_us[i]), seq.imu_ts_us, seq.imu_gyro,
+                             seq.imu_acc)
+
+    for i in range(2):
+        frame(i)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(2, n):
+            frame(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    by_name = defaultdict(float)
+    intervals = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            intervals.append((e.time_range.start, e.time_range.end))
+    busy_us = _union_us(intervals)
+    dev_total = sum(by_name.values())
+    ported = {k: sum(v for name, v in by_name.items() if any(s in name for s in subs))
+              / args.frames / 1e3 for k, subs in PORTED.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = {
+        "device": torch.cuda.get_device_name(0),
+        "frames": args.frames,
+        "wall_ms_per_frame": wall_us / args.frames / 1e3,
+        "device_busy_ms_per_frame": busy_us / args.frames / 1e3,
+        "device_busy_share": busy_us / wall_us if wall_us else None,
+        "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None,
+        "kernel_launches_per_frame": len(intervals) / args.frames,
+        "ported_kernels_ms_per_frame": ported,
+        "ported_share_of_device_time": sum(ported.values()) * args.frames * 1e3 / dev_total
+        if dev_total else None,
+        "top_kernels_ms_per_frame": [[name[:80], us / args.frames / 1e3] for name, us in top],
+    }
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return out
+
+
+if __name__ == "__main__":
+    main()

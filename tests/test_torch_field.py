@@ -1,0 +1,114 @@
+"""The port's attribute field against the JAX package: the dense seed stack
+(bit-exact) and the plain jump flood of kernel K1 against ``_att_flood``
+run by Pallas in interpret mode on the same stack (ids exact)."""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from torch_helpers import SMALL_CAMERA, small_configs, t2n  # noqa: E402
+
+from rebvio_tpu.ops import distance_field as jDF, edge_detect as jED  # noqa: E402
+from rebvio_tpu.ops.pallas_kernels import _att_flood, _flood_pad  # noqa: E402
+from rebvio_tpu.pipeline import frontend_matrices as jmats  # noqa: E402
+from rebvio_tpu.data import synthetic as jsyn  # noqa: E402
+from rebvio_tpu_torch.ops import distance_field as tDF, kernels  # noqa: E402
+
+
+def _random_stack(rng, rows, cols, sr, density=0.05):
+    """A seed stack in the flood's layout with random seeds: coords within
+    half a cell of their cell, unique ids, random gradients."""
+    pad = _flood_pad(sr)
+    Rp = rows + pad
+    st = np.zeros((5, Rp, cols), np.float32)
+    st[0] = st[1] = 1e9
+    st[2] = -1.0
+    mask = rng.rand(rows, cols) < density
+    ys, xs = np.nonzero(mask)
+    st[0, ys, xs] = ys + rng.uniform(-0.5, 0.5, len(ys))
+    st[1, ys, xs] = xs + rng.uniform(-0.5, 0.5, len(xs))
+    st[2, ys, xs] = rng.permutation(len(ys))
+    st[3, ys, xs] = rng.normal(0, 100, len(ys))
+    st[4, ys, xs] = rng.normal(0, 100, len(ys))
+    return st.reshape(5 * Rp, cols)
+
+
+def _compare_flood(stack, sr, rows, cols, scale):
+    ref = np.asarray(_att_flood(jnp.asarray(stack), sr, rows, cols, scale, interpret=True))
+    out = t2n(kernels.att_flood(torch.as_tensor(stack), sr, rows, cols, scale))
+    assert out.shape == ref.shape == (8, rows * cols)
+    # ids, seeds and gradients bit-exact: same candidates, same order, strict <
+    exact = [0, 2, 3, 4, 6, 7]
+    np.testing.assert_array_equal(out[exact], ref[exact])
+    # d2 and |g| are sums of two squares: XLA:CPU contracts them into an FMA,
+    # the port rounds the product first (as the CUDA kernel does with
+    # --fmad=false), so the two may differ by one float32 ulp
+    np.testing.assert_allclose(out[[1, 5]], ref[[1, 5]], rtol=2.4e-7, atol=0)
+    return out
+
+
+@pytest.mark.parametrize("seed,rows,cols,sr,density", [
+    (0, 60, 94, 5, 0.05), (1, 48, 64, 10, 0.01), (2, 40, 56, 3, 0.2),
+])
+def test_flood_plain_matches_pallas_random(seed, rows, cols, sr, density):
+    rng = np.random.RandomState(seed)
+    stack = _random_stack(rng, rows, cols, sr, density)
+    out = _compare_flood(stack, sr, rows, cols, 2)
+    assert (out[2] >= 0).any() and (out[2] < 0).any()
+
+
+@pytest.fixture(scope="module")
+def detected():
+    jc, tc = small_configs()
+    seq = jsyn.generate(jc.camera, n_frames=2, seed=0)
+    img = seq.images[1].astype(np.float32) * jc.image_gain
+    sr = int(jc.core.search_range)
+    mats = jmats(jc)
+    thr = jnp.float32(jc.detector.threshold)
+    em, (xs, ys, t0, t1) = jED._detect_core(jnp.asarray(img), thr, mats, jc.detector,
+                                            jc.camera, jc.field_scale)
+    args = [np.asarray(a) for a in (em.kl_id_img, xs, ys, t0, t1, em.threshold)]
+    return args, sr, jc
+
+
+def test_seed_stack_dense_exact(detected):
+    args, sr, jc = detected
+    H, W = SMALL_CAMERA["rows"], SMALL_CAMERA["cols"]
+    ref = np.asarray(jDF.seed_stack_dense(*[jnp.asarray(a) for a in args], sr, H, W,
+                                          jc.field_scale))
+    out = t2n(tDF.seed_stack_dense(*[torch.as_tensor(a) for a in args], sr, H, W,
+                                   jc.field_scale))
+    assert out.shape == ref.shape
+    np.testing.assert_array_equal(out, ref)
+    assert (out >= 0).sum() > 100
+
+
+def test_flood_plain_matches_pallas_on_detection(detected):
+    args, sr, jc = detected
+    H, W = SMALL_CAMERA["rows"], SMALL_CAMERA["cols"]
+    s = jc.field_scale
+    stack = np.asarray(jDF.seed_stack_dense(*[jnp.asarray(a) for a in args], sr, H, W, s))
+    frows, fcols, fsr = tDF.field_geometry(sr, H, W, s)
+    out = _compare_flood(stack, fsr, frows, fcols, s)
+    assert (out[2] >= 0).mean() > 0.3
+
+
+def test_flood_geometry_matches_jax():
+    for sr in (1, 2, 3, 5, 10, 17, 20, 40):
+        assert tDF.flood_pad(sr) == _flood_pad(sr)
+    assert tDF.field_geometry(40, 480, 752, 2) == (240, 376, 20)
+    assert tDF.flood_steps(20) == [16, 8, 4, 2, 1, 1]
+
+
+def test_round_half_away():
+    x = np.array([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 0.49, -0.51], np.float32)
+    np.testing.assert_array_equal(t2n(tDF._round_half_away(torch.as_tensor(x))),
+                                  np.asarray(jDF._round_half_away(jnp.asarray(x))))
