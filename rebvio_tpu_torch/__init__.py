@@ -2,8 +2,8 @@
 
 The JAX package ``rebvio_tpu`` is the reference; this package carries its
 own copies of the numpy-only modules and never imports JAX or ``rebvio_tpu``.
-Plain tensor code is PyTorch; the four Pallas kernels of the vision-only
-step are hand-written CUDA kernels for Hopper (``csrc/``, bound in
+Plain tensor code is PyTorch; the five Pallas kernels of the VIO step are
+hand-written CUDA kernels for Hopper (``csrc/``, bound in
 ``ops/kernels.py``).
 """
 

@@ -96,8 +96,10 @@ def rotation_between(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     V = hat(v)
     k = (1.0 - c) / torch.where(s2 < _EPS, torch.ones_like(s2), s2)
     R_gen = _eye_like(V) + V + k[..., None, None] * (V @ V)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device).expand(a.shape)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=a.dtype, device=a.device).expand(a.shape)
+    ex = torch.zeros_like(a)   # filled in place: no host-to-device copy
+    ex[..., 0] = 1.0
+    ey = torch.zeros_like(a)
+    ey[..., 1] = 1.0
     alt = torch.where((torch.abs(a[..., 0]) < 0.9)[..., None], ex, ey)
     ortho = _normalize(torch.linalg.cross(a, alt))
     R_pi = exp(ortho * math.pi)

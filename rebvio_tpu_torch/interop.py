@@ -40,6 +40,11 @@ def state_from_numpy(d: dict, device="cuda") -> T.VioState:
     return _from_numpy(T.VioState, d, resolve_device(device))
 
 
+def imu_frame_from_numpy(d: dict, device="cuda") -> T.ImuFrameData:
+    """A JAX ``ImuFrameData`` (as a dict of numpy arrays) on ``device``."""
+    return _from_numpy(T.ImuFrameData, d, resolve_device(device))
+
+
 def matrices_from_numpy(d: dict, device="cuda") -> FrontendMatrices:
     dev = resolve_device(device)
     return FrontendMatrices(**{k: torch.as_tensor(np.array(d[k], np.float32)).to(dev)

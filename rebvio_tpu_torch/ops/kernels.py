@@ -1,5 +1,5 @@
-"""Wrappers of the four CUDA kernels of the vision-only step, their plain
-PyTorch versions, and their launch counters.
+"""Wrappers of the five CUDA kernels of the VIO step, their plain PyTorch
+versions, and their launch counters.
 
 | kernel      | CUDA source           | replaces (rebvio_tpu/ops/pallas_kernels.py) |
 |-------------|-----------------------|---------------------------------------------|
@@ -7,6 +7,7 @@ PyTorch versions, and their launch counters.
 | try_vel     | csrc/try_vel.cu       | try_vel_math_pallas (K2; also try_vel_pallas)|
 | tube_match  | csrc/tube_match.cu    | tube_match_pallas (K4)                      |
 | reg_ekf     | csrc/reg_ekf.cu       | reg_ekf_pallas (K5)                         |
+| estimate_bias | csrc/sab.cu         | estimate_bias_pallas (K3)                   |
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and launches on the current stream.  A tensor
@@ -18,13 +19,14 @@ counts the wrapper's kernel launches (a multi-kernel call counts once).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
 
 from rebvio_tpu_torch.ops import _build
 
-LAUNCHES = {"att_flood": 0, "try_vel": 0, "tube_match": 0, "reg_ekf": 0}
+LAUNCHES = {"att_flood": 0, "try_vel": 0, "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0}
 
 f32, i32 = torch.float32, torch.int32
 
@@ -442,3 +444,124 @@ def ekf_plain(rho, sigma_rho, valid, match_id, pos_img, match_pos_img, match_gra
     rho_new = torch.where(bad, RHO_INIT, rho_new)
     sigma_new = torch.where(bad, RHO_MAX, sigma_new)
     return torch.where(m, rho_new, rho), torch.where(m, sigma_new, sigma_rho)
+
+
+# --------------------------------------------------------------------------
+# K3: SAB Gauss-Newton solve, posterior and re-fusion
+
+_PI = math.pi
+_TWO_PI = 2.0 * math.pi
+_BIAS_SAT = 5e-1 / 25  # sab_estimator.cpp:34
+
+
+def estimate_bias(a_s, a_v, x_p, W_rest, Rs, Rv, Wvw, Xvw, g_gravit, iters: int):
+    """The SAB solve from the KF-predicted prior ``x_p`` (csrc/sab.cu).
+    Shapes: a_s, a_v [3]; x_p [7]; W_rest [8,11]; Rs, Rv [3,3]; Wvw [6,6];
+    Xvw [6]; g_gravit [].  Returns (K [], X [7], P [7,7], Xvw [6])."""
+    ins = (a_s, a_v, x_p, W_rest, Rs, Rv, Wvw, Xvw, g_gravit)
+    if not _on_cuda(*ins):
+        return estimate_bias_plain(*ins, iters)
+    for t, shape, name in ((a_s, (3,), "a_s"), (a_v, (3,), "a_v"), (x_p, (7,), "x_p"),
+                           (W_rest, (8, 11), "W_rest"), (Rs, (3, 3), "Rs"),
+                           (Rv, (3, 3), "Rv"), (Wvw, (6, 6), "Wvw"), (Xvw, (6,), "Xvw"),
+                           (g_gravit, (), "g_gravit")):
+        _check(t, f32, shape, "estimate_bias " + name)
+    lib = _build.load()
+    dev = a_s.device
+    K = torch.empty((), dtype=f32, device=dev)
+    X = torch.empty((7,), dtype=f32, device=dev)
+    P = torch.empty((7, 7), dtype=f32, device=dev)
+    Xc = torch.empty((6,), dtype=f32, device=dev)
+    err = lib.rk_estimate_bias(*(_ptr(t) for t in ins), int(iters), _ptr(K), _ptr(X),
+                               _ptr(P), _ptr(Xc), _stream(a_s))
+    _raise_on(err, "estimate_bias")
+    LAUNCHES["estimate_bias"] += 1
+    return K, X, P, Xc
+
+
+def wrap_angle(a: torch.Tensor) -> torch.Tensor:
+    """a - 2pi round(a / 2pi), the Pallas body's atan2-free wrap; torch.round
+    rounds half to even, as jnp.round and the kernel's rintf do."""
+    return a - _TWO_PI * torch.round(a * (1.0 / _TWO_PI))
+
+
+def gj_inverse_mosaic(m: torch.Tensor) -> torch.Tensor:
+    """_gj_inverse_mosaic: pivot-free Gauss-Jordan with the pivot row
+    multiplied by 1/piv (linalg.gj_inverse divides)."""
+    n = m.shape[-1]
+    a = torch.cat([m, torch.eye(n, dtype=m.dtype, device=m.device)], dim=-1)
+    for i in range(n):
+        piv_row = a[i:i + 1, :] * (1.0 / a[i, i])
+        a = a - a[:, i:i + 1] * piv_row
+        a = torch.cat([a[:i], piv_row, a[i + 1:]])
+    return a[:, n:]
+
+
+def estimate_bias_plain(a_s, a_v, x_p, W_rest, Rs, Rv, Wvw, Xvw, g_gravit, iters: int):
+    """estimate_bias_pallas's body, op for op, in torch (the bias block of
+    JtJ is read by slicing where the Pallas body multiplies by 0/1
+    selectors: the same values for finite input)."""
+    from rebvio_tpu_torch.geometry import so3
+
+    dev = a_s.device
+    z = dict(dtype=f32, device=dev)
+    eye3 = torch.eye(3, **z)
+
+    def problem(Xc):
+        a, g, b = Xc[0], Xc[1:4], Xc[4:7]
+        sa, ca = torch.sin(a), torch.cos(a)
+        da = a - x_p[0]
+        da = torch.where(da > _PI, da - _TWO_PI, torch.where(da < -_PI, da + _TWO_PI, da))
+        Rb = so3.exp(b)
+        Rg_vec = Rb @ g
+        F0 = (a_s + g) * ca - a_v * sa
+        F = torch.cat([F0, (torch.sum(g * g) - g_gravit * g_gravit).reshape(1), da.reshape(1),
+                       Rg_vec - x_p[1:4], b - x_p[4:7]])
+        dFda0 = -(a_s + g) * sa - a_v * ca
+        dFda = torch.cat([dFda0, torch.tensor([0.0, 1.0], **z), torch.zeros(6, **z)])
+        z33 = torch.zeros((3, 3), **z)
+        dFdx1 = torch.cat([
+            torch.cat([eye3 * ca, z33], dim=1),
+            torch.cat([2.0 * g, torch.zeros(3, **z)])[None],
+            torch.zeros((1, 6), **z),
+            torch.cat([Rb, -so3.hat(Rg_vec)], dim=1),
+            torch.cat([z33, eye3], dim=1)])                       # [11,6]
+        Pz = sa * sa * Rv + ca * ca * Rs
+        W0 = gj_inverse_mosaic(Pz)
+        W = torch.cat([torch.cat([W0, torch.zeros((3, 8), **z)], dim=1), W_rest])
+        dP0 = (2.0 * sa * ca) * (Rv - Rs)
+        dWda0 = -((W0 @ dP0) @ W0)
+        dWPdW0 = (dWda0 @ Pz) @ dWda0
+        F0v, dFda0v = F[0:3], dFda[0:3]
+        WF = W @ F
+        WdFda = W @ dFda
+        d3 = dWda0 @ F0v
+        j00 = 0.25 * (F0v @ (dWPdW0 @ F0v)) + dFda0v @ d3 + dFda @ WdFda
+        col = dFdx1.T @ (0.5 * torch.cat([d3, torch.zeros(8, **z)]) + WdFda)
+        blk = dFdx1.T @ (W @ dFdx1)
+        JtJ = torch.cat([torch.cat([j00.reshape(1), col])[None],
+                         torch.cat([col[:, None], blk], dim=1)])
+        JtF = torch.cat([(0.5 * (F0v @ d3) + dFda @ WF).reshape(1), dFdx1.T @ WF])
+        return JtJ, JtF
+
+    Xc = x_p
+    for _ in range(iters):
+        JtJ, JtF = problem(Xc)
+        hx = gj_inverse_mosaic(JtJ) @ (-JtF)
+        fin = torch.isfinite(JtJ).all() & torch.isfinite(JtF).all()
+        hx = torch.where(fin & ~torch.isfinite(hx).all(), 0.0, hx)   # gj_solve semantics
+        Xc = Xc + hx
+        Xc = torch.cat([wrap_angle(Xc[0]).reshape(1), Xc[1:4],
+                        torch.clamp(Xc[4:7], -_BIAS_SAT, _BIAS_SAT)])
+
+    JtJ, _ = problem(Xc)
+    P = gj_inverse_mosaic(JtJ)
+    k = torch.sin(Xc[0]) / torch.cos(Xc[0])
+    k = torch.where((k < 0) | ~torch.isfinite(k), 0.0, k)
+    # re-fuse the rigid transform with the bias information (core.cpp:394-405)
+    WVBias = JtJ[4:7, 4:7]
+    M6 = Wvw.clone()
+    M6[3:, 3:] = WVBias + Wvw[3:, 3:]
+    wc = Xvw[3:6] - Xc[4:7]
+    rhs = Wvw @ Xvw + torch.cat([torch.zeros(3, **z), WVBias @ wc])
+    return k, Xc, P, gj_inverse_mosaic(M6) @ rhs

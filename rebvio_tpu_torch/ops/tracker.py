@@ -126,6 +126,24 @@ def ext_rot_vel(new: T.EdgeMap, vel: torch.Tensor, cfg: CoreConfig,
     return linalg.sym_solve(JtJ, JtF), JtJ
 
 
+def gyro_bias_correction(X: torch.Tensor, Wx: torch.Tensor, Wb: torch.Tensor,
+                         Rg: torch.Tensor, Rb: torch.Tensor):
+    """Information-form gyro-bias fusion, Eq. 27 of the 2017 paper
+    (core.cpp:264-282).  Returns (X', Wx', Wb', dgbias)."""
+    Wg = linalg.invert3(Rg)
+    Wb1 = linalg.invert3(linalg.invert3(Wb) + Rb)
+    iWgWb = linalg.invert3(Wg + Wb1)
+    eye3 = torch.eye(3, dtype=f32, device=X.device)
+    Wxb = Wx.clone()
+    Wxb[3:, 3:] += Wg @ (eye3 - iWgWb @ Wg)
+    X1 = Wx @ X  # (the dgbias-prior term is identically zero, core.cpp:276)
+    X_new = linalg.chol_inverse(Wxb) @ X1
+    dgbias = iWgWb @ (Wg @ X_new[3:])
+    Wx_new = Wx.clone()
+    Wx_new[3:, 3:] += Wg
+    return X_new, Wx_new, Wg + Wb1, dgbias
+
+
 def regularize_and_update_depth(em: T.EdgeMap, vel: torch.Tensor, threshold: float,
                                 cfg: CoreConfig, cam: CameraConfig) -> T.EdgeMap:
     """regularize_1iter + updateInverseDepthARLU as one stage (kernel K5)."""

@@ -1,13 +1,17 @@
-"""Where the time of the vision-only step goes on the GPU.
+"""Where the time of the step goes on the GPU.
 
-    python -m rebvio_tpu_torch.profile_step [--frames 8] [--out FILE]
+    python -m rebvio_tpu_torch.profile_step [--vio] [--frames 8] [--out FILE]
 
 Runs the parity-profile VO slice (752x480, 16000 keylines, 8 tube probes)
-over synthetic seed 0: two warm-up frames, then ``--frames`` frames under
-``torch.profiler``.  Prints one JSON line: the wall time per frame, the
-device's busy and idle share of that wall time (union of the kernel
-intervals), the device time per frame of each kernel name (top 12), and
-the share of the four ported kernels.  Needs a GPU.
+over synthetic seed 0, or with ``--vio`` the VIO slice (``PipelineConfig()``:
+IMU, SAB filter, undistortion) over the distorted seed-0 reference-anchor
+stream.  Warm-up frames (2; with ``--vio`` up to the first frame with the SAB
+filter engaged), then ``--frames`` frames under ``torch.profiler``, then the
+same number again under ``torch.cuda.set_sync_debug_mode`` to count the
+host syncs.  Prints one JSON line: the wall time per frame, the device's
+busy and idle share of that wall time (union of the kernel intervals), the
+device time per frame of each kernel name (top 12), the ported kernels'
+device time and share, and the host syncs per frame.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+import warnings
 from collections import defaultdict
 
 import torch
@@ -27,7 +32,8 @@ from rebvio_tpu_torch.runner import VioRunner
 PORTED = {"att_flood": ("flood_step", "flood_finish"),
           "try_vel": ("try_vel_pass", "try_vel_sum"),
           "tube_match": ("tube_match",),
-          "reg_ekf": ("reg_ekf",)}
+          "reg_ekf": ("reg_ekf",),
+          "estimate_bias": ("estimate_bias_kernel",)}
 
 
 def _union_us(intervals):
@@ -42,31 +48,48 @@ def _union_us(intervals):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--vio", action="store_true", help="profile the VIO slice")
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a GPU (torch.cuda.is_available() is False)")
 
-    cfg = PipelineConfig(use_imu=False)
-    n = args.frames + 2
-    seq = synthetic.generate(CameraConfig(), n_frames=n, seed=0)
-    runner = VioRunner(cfg, device="cuda")
+    if args.vio:
+        cfg = PipelineConfig()
+        warm = 4 + cfg.imu.init_bias_frame_num + 2   # first frame with SAB engaged: 16
+    else:
+        cfg = PipelineConfig(use_imu=False)
+        warm = 2
+    n = warm + 2 * args.frames
+    seq = synthetic.generate(CameraConfig(), n_frames=n, seed=0, distort=args.vio,
+                             imu_preroll_s=0.1 if args.vio else 0.0)
+    runner = VioRunner(cfg, undistort=args.vio, device="cuda")
 
     def frame(i):
         runner.process_frame(seq.images[i], int(seq.ts_us[i]), seq.imu_ts_us, seq.imu_gyro,
                              seq.imu_acc)
 
-    for i in range(2):
+    for i in range(warm):
         frame(i)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for i in range(2, n):
+        for i in range(warm, warm + args.frames):
             frame(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # host syncs: each synchronizing CUDA call warns once under the debug mode
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(warm + args.frames, n):
+                frame(i)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
 
     by_name = defaultdict(float)
     intervals = []
@@ -80,6 +103,7 @@ def main(argv=None) -> dict:
               / args.frames / 1e3 for k, subs in PORTED.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out = {
+        "slice": "vio" if args.vio else "vo",
         "device": torch.cuda.get_device_name(0),
         "frames": args.frames,
         "wall_ms_per_frame": wall_us / args.frames / 1e3,
@@ -91,6 +115,7 @@ def main(argv=None) -> dict:
         "ported_share_of_device_time": sum(ported.values()) * args.frames * 1e3 / dev_total
         if dev_total else None,
         "top_kernels_ms_per_frame": [[name[:80], us / args.frames / 1e3] for name, us in top],
+        "host_syncs_per_frame": len(syncs) / args.frames,
     }
     line = json.dumps(out)
     print(line, flush=True)

@@ -98,8 +98,21 @@ class ImuFrameData(_TensorTree):
 
 
 @dataclasses.dataclass
+class IntegratedImu(_TensorTree):
+    """Result of integrating one inter-frame IMU buffer (imu.hpp:80-94)."""
+
+    R: torch.Tensor      # [3,3] inter-frame rotation (camera frame)
+    gyro: torch.Tensor   # [3] mean gyro (camera frame)
+    acc: torch.Tensor    # [3] mean accelerometer (camera frame)
+    dgyro: torch.Tensor  # [3] angular acceleration (camera frame)
+    cacc: torch.Tensor   # [3] lever-arm-compensated acceleration
+    dt_s: torch.Tensor   # [] integration interval [s]
+
+
+@dataclasses.dataclass
 class SabState(_TensorTree):
-    """Scale/attitude/bias filter state; carried, unused in vision-only mode."""
+    """Scale/attitude/bias filter state (sab_estimator.hpp:37-64); carried,
+    unused in vision-only mode.  X = [alpha, g(3), b(3)], K = tan(alpha)."""
 
     X: torch.Tensor    # [7]
     P: torch.Tensor    # [7,7]

@@ -52,7 +52,7 @@ def both_runs():
         mats = jpipe.frontend_matrices(jc)
         tmats = interop.matrices_from_numpy(to_np(mats), device="cpu")
         empty = pack_imu_window(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros(0, np.int64),
-                                tc.imu.sample_max)
+                                tc.imu.sample_max, device="cpu")
         jempty = jT.empty_imu_frame(jc.imu.sample_max)
         jout, tout = [], []
         for i in range(N_FRAMES):
@@ -107,6 +107,10 @@ def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax or rebvio_tpu."""
     files = sorted((REPO / "rebvio_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    walked = {p.relative_to(REPO).as_posix() for p in files}
+    for module in ("ops/sab.py", "ops/imu.py", "ops/kernels.py", "camera.py", "pipeline.py",
+                   "runner.py", "interop.py", "profile_step.py"):
+        assert "rebvio_tpu_torch/" + module in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
@@ -164,7 +168,7 @@ def test_runner_streams_small_sequence():
 
     _, tc = small_configs()
     seq = tsyn.generate(tc.camera, n_frames=6, seed=1)
-    res = VioRunner(tc, device="cpu").run(seq)
+    res = VioRunner(tc, undistort=False, device="cpu").run(seq)
     assert res.run_ok.all()
     assert res.position.shape == (6, 3) and np.isfinite(res.position).all()
     assert (res.num_matches[1:] > tc.core.global_min_matches_threshold).all()
@@ -176,7 +180,7 @@ def test_step_chunk_equals_steps():
     seq = tsyn.generate(tc.camera, n_frames=3, seed=4)
     imgs = torch.as_tensor(np.stack(seq.images).astype(np.float32) * tc.image_gain)
     empty = pack_imu_window(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros(0, np.int64),
-                            tc.imu.sample_max)
+                            tc.imu.sample_max, device="cpu")
     dts = [0.0] + [float(d) / 1e6 for d in np.diff(seq.ts_us)]
     s0 = tT.init_vio_state(tc, device="cpu")
     sc, oc = tpipe.step_chunk(s0, imgs, [empty] * 3, dts, tc)

@@ -205,7 +205,7 @@ def test_pack_imu_window_matches_jax():
     a = rng.randn(9, 3).astype(np.float32)
     for n in (0, 1, 9):
         want = to_np(jimu.pack_imu_window(g[:n], a[:n], ts[:n], 32))
-        got = timu.pack_imu_window(g[:n], a[:n], ts[:n], 32)
+        got = timu.pack_imu_window(g[:n], a[:n], ts[:n], 32, device="cpu")
         for k in want:
             np.testing.assert_array_equal(t2n(getattr(got, k)), want[k], err_msg=k)
     assert isinstance(jT.empty_imu_frame(4).n, jax.Array)

@@ -22,6 +22,11 @@ SMALL_DETECTOR = dict(keylines_max=2048, keylines_ref=1200)
 SMALL_CORE = dict(search_range=10, global_min_matches_threshold=100)
 
 
+# EuRoC's rad-tan coefficients (normalized coordinates, so any resolution)
+EUROC_DISTORTION = dict(k1=-0.28340811, k2=0.07395907, k3=0.0, p1=0.00019359,
+                        p2=1.76187114e-05)
+
+
 def small_config(mod, **kw):
     """The small vision-only PipelineConfig from configs module ``mod``
     (rebvio_tpu.configs or rebvio_tpu_torch.configs)."""
@@ -32,6 +37,20 @@ def small_config(mod, **kw):
 
 def small_configs(**kw):
     return small_config(jcfg, **kw), small_config(tcfg, **kw)
+
+
+def small_vio_config(mod):
+    """The small preset with the IMU and SAB filter on, a camera with EuRoC's
+    distortion, and a 2-frame bias-init window: SAB is engaged once
+    num_frames > 4 + 2, from frame 8 (the 8th estimate) on."""
+    return mod.PipelineConfig(camera=mod.CameraConfig(**{**SMALL_CAMERA, **EUROC_DISTORTION}),
+                              detector=mod.EdgeDetectorConfig(**SMALL_DETECTOR),
+                              core=mod.CoreConfig(**SMALL_CORE),
+                              imu=mod.ImuConfig(init_bias_frame_num=2), use_imu=True)
+
+
+def small_vio_configs():
+    return small_vio_config(jcfg), small_vio_config(tcfg)
 
 
 def use_pallas(monkeypatch, *flags):
