@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU at the EuRoC parity
-profile (752x480, 16000 keylines, 8 tube probes): the vision-only VO step
-and the VIO step (IMU, gyro-bias fusion, SAB filter, undistortion).
+profile (752x480, 16000 keylines, 8 tube probes): the vision-only VO step,
+the VIO step (IMU, gyro-bias fusion, SAB filter, undistortion), the
+loop-closure / pose-graph back end on the VIO run's keyframe maps, and the
+field timing tool.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. device: card name and power limit, torch/CUDA versions, kernel build;
-  2. kernels: each CUDA kernel of the two paths (att_flood, try_vel,
-     tube_match, reg_ekf, estimate_bias) against its plain PyTorch version
-     on the card, on inputs taken from the paths at their shapes (a VO frame
-     pair; estimate_bias at the first frame the SAB filter is engaged) plus
-     seeded random cases, with its time, the plain version's time and its
-     bound;
+  2. kernels: each CUDA kernel of the paths (att_flood, try_vel,
+     tube_match, reg_ekf, estimate_bias, att_field, nn_field) against its
+     plain PyTorch version on the card, on inputs taken from the paths at
+     their shapes (a VO frame pair and its post-step map; estimate_bias at
+     the first frame the SAB filter is engaged) plus seeded random cases
+     (for the two scatter-seeded fields: several keylines per cell, gated-out
+     keylines on top of kept ones, keylines outside the field), with its
+     time, the plain version's time and its bound; the seeding's winner
+     plane against the plain scatter-max; and the scatter-seeded field
+     (att_field) against the dense-seeded one (att_flood) on the detector's
+     own map;
   3. VO slice: VioRunner(undistort=False) over 24 synthetic frames, with the
      launch counters set to 0 just before and read just after, the
      trajectory held against the committed JAX golden
@@ -21,7 +28,18 @@ Phases (any failure exits non-zero):
      distorted frames of the seed-0 reference-anchor stream, counters as in
      3, held against the committed JAX golden
      (tests/data/torch_golden_vio_euroc_seed0_120.txt) and the reference
-     binary's golden (tests/data/anchor_ref_trajectory_seed0_120.txt).
+     binary's golden (tests/data/anchor_ref_trajectory_seed0_120.txt); a
+     KeyframeMapBuilder (a keyframe every 5 frames, maps stored on the card)
+     rides along, fed per frame;
+  5. loop closure: a 3.5 deg yaw drift is injected into the 24-keyframe
+     chain from keyframe 12 on, then build_graph_from_run (coarse rotation
+     sweep, tracker registration against the scatter-seeded field) and 15
+     damped Gauss-Newton iterations over the pose graph, counters as in 3,
+     held against the committed JAX golden
+     (tests/data/torch_golden_lc_euroc_seed0_120.json); before it, att_field
+     and nn_field against their plain versions on a stored keyframe map;
+  6. field tool: python -m rebvio_tpu_torch.tools.jfa_ab's main (nn_field,
+     att_field and att_flood timed at the fast profile), counters as in 3.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -38,6 +56,7 @@ REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "data" / "torch_golden_vo_euroc_seed0_24.txt"
 VIO_GOLDEN = REPO / "tests" / "data" / "torch_golden_vio_euroc_seed0_120.txt"
 REF_GOLDEN = REPO / "tests" / "data" / "anchor_ref_trajectory_seed0_120.txt"
+LC_GOLDEN = REPO / "tests" / "data" / "torch_golden_lc_euroc_seed0_120.json"
 N_FRAMES = 24
 N_VIO = 120
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
@@ -57,23 +76,45 @@ VIO_BOUNDS = dict(ate_sim3_m=0.008, ate_rigid_m=0.024, match_rtol=0.04, K_abs=0.
 # the reference binary's golden, at tests/test_reference_anchor.py's bounds
 REF_ATE_BOUND_M = 0.05      # sim3 cross-ATE
 REF_GT_MARGIN_M = 0.05      # ATE vs ground truth no worse than the reference's + this
+# The loop-closure phase (as tests/test_torch_loop_closure.py's golden writer):
+# the second half of the run's 24 keyframes (the first three precede the SAB
+# filter's engagement, and over all 24 no candidate pair spans the break), an
+# 8 deg yaw drift (above the 0.3-5 deg registration noise at this size)
+LC_KF_EVERY = 5
+LC_FIRST_KF = 12
+LC_YAW_DEG = 8.0
+LC_OPT_ITERS = 15
+LC_KW = dict(min_gap=6, radius=10.0, w_loop=2.0, coarse_sweep_deg=8.0, coarse_steps=17)
+# Bounds against the JAX golden, about twice the spread between JAX's own two
+# paths on this scenario (CPU, `python tests/test_torch_loop_closure.py`): over
+# the 21 candidate pairs the forward-match counts differ by up to 22 %, the
+# measured rotations' angle to the chain by up to 3.84 deg (the coarse sweep
+# picks another candidate on two long-baseline pairs), no kept flag flips (one
+# is allowed), cost before 0.40 %, cost after 34 %, mean rotation error after
+# 0.195 deg
+LC_BOUNDS = dict(pairs_missing=0, nfm_rel=0.45, angle_deg=7.7, kept_flips=1,
+                 cost_before_rel=0.01, cost_after_rel=0.7, rot_err_deg=0.4)
 REPLACES = {
     "att_flood": "rebvio_tpu/ops/pallas_kernels.py:206",
     "try_vel": "rebvio_tpu/ops/pallas_kernels.py:314",
     "tube_match": "rebvio_tpu/ops/pallas_kernels.py:921",
     "reg_ekf": "rebvio_tpu/ops/pallas_kernels.py:422",
     "estimate_bias": "rebvio_tpu/ops/pallas_kernels.py:720",
+    "att_field": "rebvio_tpu/ops/pallas_kernels.py:120",
+    "nn_field": "rebvio_tpu/ops/pallas_kernels.py:48",
 }
 # outputs (index -> planes; None = the whole output) that hold ids and must
 # match the plain version exactly
 EXACT = {"att_flood": {0: (2,)}, "try_vel": {4: (None,)}, "tube_match": {0: (0, 1)},
-         "reg_ekf": {}, "estimate_bias": {}}
+         "reg_ekf": {}, "estimate_bias": {}, "att_field": {0: (2,)}, "nn_field": {0: (None,)}}
 SOURCES = {
     "att_flood": "rebvio_tpu_torch/csrc/flood.cu",
     "try_vel": "rebvio_tpu_torch/csrc/try_vel.cu",
     "tube_match": "rebvio_tpu_torch/csrc/tube_match.cu",
     "reg_ekf": "rebvio_tpu_torch/csrc/reg_ekf.cu",
     "estimate_bias": "rebvio_tpu_torch/csrc/sab.cu",
+    "att_field": "rebvio_tpu_torch/csrc/seed_scatter.cu",    # then flood.cu's flood
+    "nn_field": "rebvio_tpu_torch/csrc/nn_flood.cu",         # seeded by seed_scatter.cu
 }
 
 
@@ -83,9 +124,10 @@ SOURCES = {
 # estimate_bias (normwise) sums its small products in another order than
 # cuBLAS, through a 5-step Gauss-Newton chain whose bias block carries the
 # ~1e13 prior information (measured up to 3.3e-6 on the card, engaged VIO
-# frame and test_sab.py's trials; 1e-4)
+# frame and test_sab.py's trials; 1e-4); att_field repeats its plain version's
+# arithmetic op for op (1e-6; 0 is expected) and nn_field's output is ids
 TOL_REL = {"att_flood": 1e-6, "try_vel": 1e-4, "tube_match": 1e-6, "reg_ekf": 1e-6,
-           "estimate_bias": 1e-4}
+           "estimate_bias": 1e-4, "att_field": 1e-6, "nn_field": 0.0}
 
 
 def prefix(sq, n: int):
@@ -203,7 +245,12 @@ def main() -> int:
     from rebvio_tpu_torch.configs import CameraConfig, PipelineConfig
     from rebvio_tpu_torch.data import synthetic
     from rebvio_tpu_torch.ops import _build, kernels
-    from rebvio_tpu_torch.runner import VioRunner
+    from rebvio_tpu_torch.ba import loop_closure as lc
+    from rebvio_tpu_torch.ba import pose_graph as pgm
+    from rebvio_tpu_torch.ba.keyframe_map import KeyframeMapBuilder
+    from rebvio_tpu_torch.geometry import so3
+    from rebvio_tpu_torch.runner import RunResult, VioRunner
+    from rebvio_tpu_torch.tools import jfa_ab
 
     dev = torch.device("cuda")
     # ---------------- phase 1: device and build
@@ -228,7 +275,8 @@ def main() -> int:
     # (frames 0, 1), estimate_bias on the VIO stream up to the first frame
     # with the SAB filter engaged (num_frames > 4 + init_bias_frame_num)
     captured = {}
-    originals = {name: getattr(kernels, name) for name in REPLACES}
+    step_names = ["att_flood", "try_vel", "tube_match", "reg_ekf", "estimate_bias"]
+    originals = {name: getattr(kernels, name) for name in step_names}
 
     def recorder(name):
         def call(*args):
@@ -241,16 +289,18 @@ def main() -> int:
         for name in names:
             setattr(kernels, name, recorder(name))
         try:
-            VioRunner(run_cfg, undistort=undistort, device="cuda").run(prefix(sq, n))
+            r = VioRunner(run_cfg, undistort=undistort, device="cuda")
+            r.run(prefix(sq, n))
         finally:
             for name in names:
                 setattr(kernels, name, originals[name])
+        return r
 
-    vo_names = [n for n in REPLACES if n != "estimate_bias"]
-    capture(vo_names, cfg, seq, 2, undistort=False)
+    vo_names = [n for n in step_names if n != "estimate_bias"]
+    map1 = capture(vo_names, cfg, seq, 2, undistort=False).state.edge_map   # frame 1, post-step
     engaged_call = 4 + vcfg.imu.init_bias_frame_num   # call i runs at frame i + 1
     capture(["estimate_bias"], vcfg, vseq, engaged_call + 2, undistort=True)
-    missing = set(REPLACES) - set(captured)
+    missing = set(step_names) - set(captured)
     if missing:
         return fail(f"the slices never called {sorted(missing)}")
 
@@ -296,9 +346,68 @@ def main() -> int:
     cases["estimate_bias"] += sab_random_cases(dev, kernels, recorder, originals, captured,
                                                vcfg.imu.sab_iterations)
 
+    # the two scatter-seeded fields: the table of frame 1's post-step map, and
+    # seeded random tables of the same size: positions over the image and a
+    # margin outside it, the second half of the table sitting on the cells of
+    # the first half (collisions at every scale), a tenth of it gated out
+    from rebvio_tpu_torch.ops import distance_field as DF
+
+    H, W, fs = vcfg.camera.rows, vcfg.camera.cols, vcfg.field_scale
+    sr_img = int(vcfg.core.search_range)
+    frows, fcols, fsr = DF.field_geometry(sr_img, H, W, fs)
+
+    def field_cases(label, pos, grad, use):
+        pos, grad, use = pos.contiguous(), grad.contiguous(), use.contiguous()
+        cases.setdefault("att_field", []).append(
+            (label, (pos, grad, use, sr_img, H, W, fs)))
+        pos_f = (pos / torch.full_like(pos, float(fs))).contiguous()
+        cases.setdefault("nn_field", []).append((label, (pos_f, use, fsr, frows, fcols)))
+
+    field_cases("frame 1 map", map1.pos, map1.grad, DF.keyline_gate(map1))
+    for trial in range(2):
+        half = K // 2
+        p = np.stack([rng.uniform(-6, W + 6, K), rng.uniform(-6, H + 6, K)], -1)
+        p[half:] = p[:half] + rng.uniform(-0.4, 0.4, (K - half, 2))
+        field_cases(f"random table {trial}", on_dev(p.astype(np.float32)),
+                    on_dev(rng.normal(0, 100, (K, 2)).astype(np.float32)),
+                    on_dev(rng.rand(K) < 0.9))
+    # the seeding's winner plane against the plain scatter-max, exact
+    lib = _build.load()
+    for label, (pos, _grad, use, *_rest) in cases["att_field"]:
+        got = kernels._seed_winner(lib, pos, use, frows, fcols, 1.0 / fs)
+        want, _, _ = kernels.seed_winner_plain(pos, use, frows, fcols, 1.0 / fs)
+        torch.cuda.synchronize()
+        kept = int((want >= 0).sum())
+        inside = int(kernels._seed_cells(pos, use, frows, fcols, 1.0 / fs)[3].sum())
+        print(json.dumps({"check": "seed winner plane", "case": label, "cells_seeded": kept,
+                          "keylines_in_field": inside, "equal": bool(torch.equal(got, want))}))
+        if not torch.equal(got, want):
+            return fail(f"seed winner plane differs from the plain scatter-max ({label})")
+        if label != "frame 1 map" and not kept < inside:
+            return fail(f"random table {label} forced no collision")
+    # the scatter-seeded field against the dense-seeded one on the detector's
+    # map of frame 1: equal wherever no keyline sits between the two gates
+    # (grad_norm >= thr on the table, g2 >= thr^2 on the detector planes)
+    stack1 = captured["att_flood"][1][0]
+    att_dense = kernels.att_flood(stack1, fsr, frows, fcols, fs)
+    att_table = kernels.att_field(*cases["att_field"][0][1])
+    g2 = (map1.grad * map1.grad).sum(-1)
+    thr = map1.threshold
+    split = map1.valid & ((map1.grad_norm >= thr) != (g2 >= thr * thr)) & (thr > 0)
+    split_ids = torch.nonzero(split).squeeze(1).to(torch.float32)
+    touched = torch.isin(att_dense[2], split_ids) | torch.isin(att_table[2], split_ids)
+    differ = (att_dense != att_table).any(0) & ~touched
+    print(json.dumps({"check": "att_field (table) vs att_flood (dense seeds), frame 1",
+                      "keylines_between_the_gates": int(split.sum()),
+                      "cells_excluded": int(touched.sum()),
+                      "cells_differing": int(differ.sum()), "cells": int(differ.numel())}))
+    if int(differ.sum()) > (0 if int(split.sum()) == 0 else differ.numel() // 1000):
+        return fail("the scatter-seeded field differs from the dense-seeded one")
+
     plain = {"att_flood": kernels.att_flood_plain, "try_vel": kernels.try_vel_plain,
              "tube_match": kernels.tube_match_plain, "reg_ekf": kernels.reg_ekf_plain,
-             "estimate_bias": kernels.estimate_bias_plain}
+             "estimate_bias": kernels.estimate_bias_plain,
+             "att_field": kernels.att_field_plain, "nn_field": kernels.nn_field_plain}
 
     def as_list(out):
         return list(out) if isinstance(out, (tuple, list)) else [out]
@@ -359,6 +468,14 @@ def main() -> int:
     # estimate_bias: its inputs (3+3+7+88+9+9+36+6+1 floats) read once and its
     # outputs (1+7+49+6) written once
     b["estimate_bias"] = bound_ms((162 + 63) * 4, sab_flops(vcfg.imu.sab_iterations))
+    # att_field: the table (pos, grad float32 pairs, use bytes) read once, the
+    # 8 planes written once; the flood's operations as att_flood's plus the
+    # seeding's two multiplies, adds and floors per keyline
+    b["att_field"] = bound_ms(K * 17 + 8 * n * 4, steps * 8 * 7 * n + 4 * n + 6 * K)
+    # nn_field: pos and use read once, the int32 ids written once; 8
+    # directions per step, each a distance (5 operations), a compare and the
+    # gate's share
+    b["nn_field"] = bound_ms(K * 9 + n * 4, steps * 8 * 7 * n + 6 * K)
     for name in REPLACES:
         report[name]["bound_ms"], report[name]["bound_by"] = b[name]
         print(json.dumps({"kernel": name, **report[name]}), flush=True)
@@ -383,7 +500,8 @@ def main() -> int:
         return fail(f"run_ok dropped at frame {int(np.argmin(res.run_ok))}")
     est = N_FRAMES - 1
     want = {"att_flood": N_FRAMES, "try_vel": est * (1 + cfg.core.iterations),
-            "tube_match": est, "reg_ekf": est, "estimate_bias": 0}
+            "tube_match": est, "reg_ekf": est, "estimate_bias": 0, "att_field": 0,
+            "nn_field": 0}
     if launches != want:
         return fail(f"launch counts {launches}, expected {want}")
     g = np.loadtxt(GOLDEN)
@@ -406,9 +524,20 @@ def main() -> int:
                          vseq.imu_gyro[:0], vseq.imu_acc[:0])      # warm-up frame
     runner.reset()
     torch.cuda.synchronize()
+    # the keyframe map accumulator rides along: fed per frame (four [K] fields and the
+    # pose copied to the host each frame), maps stored on the card
+    mapper = KeyframeMapBuilder(vcfg, kf_every=LC_KF_EVERY, store_maps=True,
+                                kf_phase=LC_KF_EVERY - 1)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = runner.run(vseq)
+    odo_rows = []
+    for i in range(N_VIO):
+        odo = runner.process_frame(vseq.images[i], int(vseq.ts_us[i]), vseq.imu_ts_us,
+                                   vseq.imu_gyro, vseq.imu_acc)
+        o, p = odo.orientation.cpu().numpy(), odo.position.cpu().numpy()
+        mapper.add_frame(runner.state.edge_map, o, p, K_scale=float(runner.state.K))
+        odo_rows.append((int(vseq.ts_us[i]), o, p, int(odo.num_matches), bool(odo.run_ok)))
+    res = RunResult(*(np.asarray(c) for c in zip(*odo_rows)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     vlaunches = dict(kernels.LAUNCHES)
@@ -421,14 +550,16 @@ def main() -> int:
         return fail(f"VIO run_ok dropped at frame {int(np.argmin(res.run_ok))}")
     est = N_VIO - 1
     want = {"att_flood": N_VIO, "try_vel": est * (1 + vcfg.core.iterations),
-            "tube_match": est, "reg_ekf": est, "estimate_bias": est}
+            "tube_match": est, "reg_ekf": est, "estimate_bias": est, "att_field": 0,
+            "nn_field": 0}
     if vlaunches != want:
         return fail(f"VIO launch counts {vlaunches}, expected {want}")
     g, gK, gg = read_vio_golden(VIO_GOLDEN)
     rel = np.abs(res.num_matches[1:] - g[1:, 7]) / g[1:, 7]
     ref = np.loadtxt(REF_GOLDEN)[: N_VIO - 1, 4:7]   # the reference emits frames 1..N-1
     gt = vseq.gt_pos[1:N_VIO]
-    vio = {"slice": "vio parity 752x480 K=16000 P=8 imu sab_iterations=5 undistort",
+    vio = {"slice": "vio parity 752x480 K=16000 P=8 imu sab_iterations=5 undistort, with "
+                    "the keyframe map accumulator fed per frame (its host copies are in ms_per_frame)",
            "frames": N_VIO, "ms_per_frame": wall / N_VIO * 1e3, "card": card,
            "cross_ate_sim3_m": ev.ate_rmse(res.position, g[:, 4:7]),
            "cross_ate_rigid_m": ev.ate_rmse(res.position, g[:, 4:7], with_scale=False),
@@ -456,11 +587,164 @@ def main() -> int:
         if not ok:
             return fail(f"VIO slice: {what} out of bounds")
 
+
+    # ---------------- phase 5: loop closure on the VIO run's keyframe maps
+    if mapper.n_keyframes() != N_VIO // LC_KF_EVERY or len(mapper.kf_maps) != 24:
+        return fail(f"{mapper.n_keyframes()} keyframes, {len(mapper.kf_maps)} maps; expected 24")
+    gold = json.loads(LC_GOLDEN.read_text())
+    keyframes = mapper.keyframes[LC_FIRST_KF:]
+    kf_maps = mapper.kf_maps[LC_FIRST_KF:]
+    if [k.index for k in keyframes] != gold["kf_index"]:
+        return fail("keyframe indices differ from the golden's")
+    # the two scatter-seeded fields against their plain versions on a stored
+    # keyframe map (before the counters are reset: these launches do not count)
+    kmap = kf_maps[len(kf_maps) // 2]
+    gate = DF.keyline_gate(kmap)
+    pos_k, grad_k = kmap.pos.contiguous(), kmap.grad.contiguous()
+    a_k = kernels.att_field(pos_k, grad_k, gate, sr_img, H, W, fs)
+    a_p = kernels.att_field_plain(pos_k, grad_k, gate, sr_img, H, W, fs)
+    pos_f = (pos_k / torch.full_like(pos_k, float(fs))).contiguous()
+    n_k = kernels.nn_field(pos_f, gate, fsr, frows, fcols)
+    n_p = kernels.nn_field_plain(pos_f, gate, fsr, frows, fcols)
+    torch.cuda.synchronize()
+    kf_err = float((a_k - a_p).abs().max())
+    print(json.dumps({"check": "att_field, nn_field on the keyframe map of frame "
+                               f"{keyframes[len(kf_maps) // 2].index}",
+                      "keylines": int(gate.sum()), "att_field_max_abs_err": kf_err,
+                      "att_field_ids_equal": bool(torch.equal(a_k[2], a_p[2])),
+                      "nn_field_equal": bool(torch.equal(n_k, n_p))}))
+    if not (torch.equal(a_k[2], a_p[2]) and torch.equal(n_k, n_p)) or kf_err > 1e-3:
+        return fail("att_field / nn_field differ from their plain versions on a keyframe map")
+    report["att_field"]["max_abs_err"] = max(report["att_field"]["max_abs_err"], kf_err)
+
+    kf_R = np.stack([k.R_wc for k in keyframes])
+    kf_t = np.stack([k.t_wc for k in keyframes])
+    F = len(kf_t)
+    k0 = F // 2
+    dR = so3.exp(torch.as_tensor(np.array([0.0, np.radians(LC_YAW_DEG), 0.0], np.float32))).numpy()
+    pivot = kf_t[k0].copy()
+    kf_R_d, kf_t_d = kf_R.copy(), kf_t.copy()
+    for k in range(k0, F):
+        kf_R_d[k] = dR @ kf_R[k]
+        kf_t_d[k] = dR @ (kf_t[k] - pivot) + pivot
+    cand = lc.propose_candidates(kf_t_d, LC_KW["min_gap"], LC_KW["radius"])
+    reg_log = []
+    plain_register = lc.register_pair
+
+    def recording_register(em_i, em_j, R_prior, config, iters=4):
+        out = plain_register(em_i, em_j, R_prior, config, iters=iters)
+        reg_log.append(out)                 # device tensors: read after the run
+        return out
+
+    lc.register_pair = recording_register
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        graph, n_loops = lc.build_graph_from_run(
+            kf_R_d, kf_t_d, kf_maps, vcfg, K_scale=K_fin,
+            min_matches=int(vcfg.core.global_min_matches_threshold), **LC_KW)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+    finally:
+        lc.register_pair = plain_register
+    t0 = time.perf_counter()
+    g_opt, hist = pgm.optimize(graph, iters=LC_OPT_ITERS)
+    torch.cuda.synchronize()
+    t_opt_first = time.perf_counter() - t0     # with the one-time set-up of the solver library
+    lcl = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    g_again, hist_again = pgm.optimize(graph, iters=LC_OPT_ITERS)
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0
+    if not (torch.equal(hist, hist_again) and torch.equal(g_opt.R, g_again.R)):
+        return fail("pose_graph.optimize gave another result on the same graph")
+    hist = hist.cpu().numpy()
+    n_pairs = len(cand)
+    want = {"att_flood": 2 * n_pairs, "att_field": 2 * n_pairs,
+            "try_vel": n_pairs * 4 * (1 + vcfg.core.iterations),
+            "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0, "nn_field": 0}
+    if lcl != want or len(reg_log) != n_pairs:
+        return fail(f"loop-closure launch counts {lcl}, expected {want} for {n_pairs} pairs")
+
+    def angle_deg(Ra, Rb):      # from the chord: well-conditioned at small angles
+        d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+        return float(np.degrees(2.0 * np.arcsin(min(d / (2.0 * np.sqrt(2.0)), 1.0))))
+
+    F_seq = F - 1
+    kept = set(zip(graph.f_i[F_seq:].tolist(), graph.f_j[F_seq:].tolist()))
+    pairs = {(i, j): dict(nfm=int(rec[2]), kept=(i, j) in kept,
+                          angle=angle_deg(rec[0].cpu().numpy(), kf_R[i].T @ kf_R[j]))
+             for (i, j), rec in zip(cand, reg_log)}
+    gpairs = {(q["i"], q["j"]): q for q in gold["pairs"]}
+    common = sorted(set(pairs) & set(gpairs))
+    rot_err = lambda Rs: float(np.mean([angle_deg(a, b) for a, b in zip(Rs, kf_R)]))  # noqa: E731
+    lcr = {"slice": f"loop closure parity 752x480 K=16000, keyframes {LC_FIRST_KF}.. of 24, "
+                    f"{LC_YAW_DEG} deg yaw drift from keyframe F//2, {LC_KW}, "
+                    f"optimize iters={LC_OPT_ITERS}",
+           "card": card, "pairs": n_pairs, "pairs_in_golden": len(common),
+           "ms_per_registered_pair": t_build / n_pairs * 1e3, "optimize_ms": t_opt * 1e3,
+           "optimize_first_call_ms": t_opt_first * 1e3,
+           "loop_factors": int(n_loops), "loop_factors_golden": gold["n_loops"],
+           "cost_before": float(hist[0]), "cost_after": float(hist[-1]),
+           "cost_before_golden": gold["cost_before"], "cost_after_golden": gold["cost_after"],
+           "rot_err_before_deg": rot_err(kf_R_d),
+           "rot_err_after_deg": rot_err(g_opt.R.cpu().numpy()),
+           "rot_err_after_deg_golden": gold["rot_err_after_deg"],
+           "max_nfm_rel_diff": max(abs(pairs[k]["nfm"] - gpairs[k]["nfm"])
+                                   / max(gpairs[k]["nfm"], 1) for k in common),
+           "max_angle_diff_deg": max(abs(pairs[k]["angle"] - gpairs[k]["angle_to_chain_deg"])
+                                     for k in common),
+           "kept_flips": sum(pairs[k]["kept"] != gpairs[k]["kept"] for k in common),
+           "nfm": [pairs[k]["nfm"] for k in sorted(pairs)],
+           "angle_to_chain_deg": [round(pairs[k]["angle"], 4) for k in sorted(pairs)],
+           "bounds": LC_BOUNDS, "launches": lcl}
+    print(json.dumps(lcr), flush=True)
+    checks = [
+        (len(common) >= n_pairs - LC_BOUNDS["pairs_missing"], "candidate pairs vs the golden's"),
+        (lcr["max_nfm_rel_diff"] <= LC_BOUNDS["nfm_rel"], "forward-match counts vs the golden"),
+        (lcr["max_angle_diff_deg"] <= LC_BOUNDS["angle_deg"],
+         "measured rotations' angle to the chain vs the golden"),
+        (lcr["kept_flips"] <= LC_BOUNDS["kept_flips"], "kept factors vs the golden"),
+        (abs(n_loops - gold["n_loops"]) <= LC_BOUNDS["kept_flips"], "loop factor count"),
+        (abs(hist[0] - gold["cost_before"]) <= LC_BOUNDS["cost_before_rel"] * gold["cost_before"],
+         "cost before vs the golden"),
+        (abs(hist[-1] - gold["cost_after"]) <= LC_BOUNDS["cost_after_rel"] * gold["cost_after"],
+         "cost after vs the golden"),
+        (abs(lcr["rot_err_after_deg"] - gold["rot_err_after_deg"]) <= LC_BOUNDS["rot_err_deg"],
+         "mean rotation error after vs the golden"),
+        (n_loops >= 2, "at least 2 loop factors"),
+        (np.isfinite(hist).all() and hist[-1] < hist[0], "cost after < cost before"),
+        (lcr["rot_err_after_deg"] < 0.7 * lcr["rot_err_before_deg"],
+         "mean rotation error after < 0.7 x before"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            return fail(f"loop closure: {what} out of bounds")
+
+    # ---------------- phase 6: the field timing tool (nn_field's entry point)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    tool = jfa_ab.main()
+    torch.cuda.synchronize()
+    tl = dict(kernels.LAUNCHES)
+    calls = jfa_ab.CALLS + jfa_ab.WARM + jfa_ab.PROFILED
+    want = {"nn_field": calls, "att_field": calls, "att_flood": 2 * calls, "try_vel": 0,
+            "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0}
+    print(json.dumps({"slice": "field tool, fast profile (8192 keylines, field 240x376)",
+                      "us_per_call_events_host_device": {k: list(v) for k, v in tool.items()},
+                      "launches": tl}), flush=True)
+    if tl != want:
+        return fail(f"field tool launch counts {tl}, expected {want}")
+
+    path_launches = {**vlaunches, "att_field": lcl["att_field"], "nn_field": tl["nn_field"]}
+    if not all(path_launches[name] > 0 for name in REPLACES):
+        return fail(f"a kernel was launched no time on its path: {path_launches}")
     out = []
     for name in REPLACES:
         r = report[name]
         out.append(dict(name=name, route="cuda", source=SOURCES[name],
-                        replaces=REPLACES[name], launches=vlaunches[name],
+                        replaces=REPLACES[name], launches=path_launches[name],
                         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": out}))

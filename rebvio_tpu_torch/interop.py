@@ -51,10 +51,21 @@ def matrices_from_numpy(d: dict, device="cuda") -> FrontendMatrices:
                                for k in FrontendMatrices._fields})
 
 
+def pose_graph_from_numpy(d: dict, device="cuda"):
+    """A JAX ``PoseGraph`` (as a dict of numpy arrays; ``f_wt`` may be None)
+    on ``device``."""
+    from rebvio_tpu_torch.ba.pose_graph import PoseGraph
+
+    dev = resolve_device(device)
+    return PoseGraph(**{k: None if d.get(k) is None
+                        else torch.as_tensor(np.array(d[k], copy=True)).to(dev)
+                        for k in PoseGraph._fields})
+
+
 def to_numpy(obj) -> dict:
     """A port dataclass (or FrontendMatrices) as a nested dict of numpy arrays."""
-    if isinstance(obj, FrontendMatrices):
-        return {k: v.cpu().numpy() for k, v in obj._asdict().items()}
+    if hasattr(obj, "_asdict"):    # FrontendMatrices, PoseGraph
+        return {k: None if v is None else v.cpu().numpy() for k, v in obj._asdict().items()}
     out = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rebvio_kernels"
-SOURCES = ("flood.cu", "try_vel.cu", "tube_match.cu", "reg_ekf.cu", "sab.cu")
+SOURCES = ("flood.cu", "try_vel.cu", "tube_match.cu", "reg_ekf.cu", "sab.cu",
+           "seed_scatter.cu", "nn_flood.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +38,9 @@ _SIGNATURES = {
     "rk_tube_match": [P] * 4 + [I] * 6 + [F] * 3 + [P, P],
     "rk_reg_ekf": [P] * 13 + [I] + [F] * 4 + [P, P, P],
     "rk_estimate_bias": [P] * 9 + [I] + [P] * 4 + [P],
+    "rk_seed_winner": [P, P, I, F, I, I, P, P],
+    "rk_seed_stack": [P, P, P, F, I, I, I, P, P],
+    "rk_nn_flood": [P] * 7 + [I, I, I, P],
 }
 
 

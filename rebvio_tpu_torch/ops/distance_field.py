@@ -1,6 +1,8 @@
-"""Nearest-keyline attribute field (rebvio_tpu/ops/distance_field.py):
-dense seeding from the detector planes, then the jump flood (kernel K1,
-ops/kernels.py::att_flood)."""
+"""Nearest-keyline fields (rebvio_tpu/ops/distance_field.py).  The attribute
+field: dense seeding from the detector planes and the jump flood (kernel
+K1, kernels.att_flood), or scatter seeding from the keyline table and the
+same flood (kernel K1b, kernels.att_field).  The id-only field: the
+exact-metric flood of kernel K7 (kernels.nn_field)."""
 
 from __future__ import annotations
 
@@ -95,10 +97,38 @@ def seed_stack_dense(kl_id_img, sub_x, sub_y, gx, gy, threshold,
     return stack.reshape(5 * Rp, fcols)
 
 
-def build_att_field(seed_stack: torch.Tensor, search_range: int, rows: int, cols: int,
-                    scale: int = 1) -> torch.Tensor:
+def att_rows(att_planes: torch.Tensor) -> torch.Tensor:
+    """[8, N] attribute planes -> [N, 8] gatherable rows (a view)."""
+    return att_planes.T
+
+
+def keyline_gate(em) -> torch.Tensor:
+    """Which keylines seed a field: valid, and at or above the map's
+    threshold on the stored gradient norm when that threshold is set."""
+    return em.valid & ((em.threshold <= 0.0) | (em.grad_norm >= em.threshold))
+
+
+def build_att_field(em, search_range: int, rows: int, cols: int, scale: int = 1,
+                    seed_stack: torch.Tensor = None) -> torch.Tensor:
     """Dense nearest-keyline attribute field, ``[8, N]`` planes of
     (0, d2, id, grad_x, grad_y, grad_norm, pos_x, pos_y) with id = -1
-    beyond ``search_range`` (seed-stack branch of the JAX version)."""
+    beyond ``search_range``.  With ``seed_stack`` (the detector's dense
+    stack, ``seed_stack_dense``) only the flood runs (K1) and ``em`` is not
+    read; without one the keyline table of ``em`` is scattered into the
+    stack first (K1b)."""
+    if seed_stack is not None:
+        frows, fcols, sr = field_geometry(search_range, rows, cols, scale)
+        return kernels.att_flood(seed_stack, sr, frows, fcols, scale)
+    return kernels.att_field(em.pos.contiguous(), em.grad.contiguous(), keyline_gate(em),
+                             search_range, rows, cols, scale)
+
+
+def build_nn_field(em, search_range: int, rows: int, cols: int, scale: int = 1) -> torch.Tensor:
+    """Dense nearest-keyline id field: ``[frows*fcols]`` int32, -1 where no
+    keyline lies within ``search_range``.  ``scale`` > 1 builds it on the
+    decimated grid (positions divided by ``scale``, search range in field
+    units); consumers index it with pixel // scale.  Computed by K7's flood
+    on the exact subpixel metric."""
     frows, fcols, sr = field_geometry(search_range, rows, cols, scale)
-    return kernels.att_flood(seed_stack, sr, frows, fcols, scale)
+    pos = em.pos if scale == 1 else em.pos / torch.full_like(em.pos, float(scale))
+    return kernels.nn_field(pos.contiguous(), keyline_gate(em), sr, frows, fcols)

@@ -15,6 +15,14 @@ from rebvio_tpu_torch.ops.scale_space import FrontendMatrices, build_scale_space
 f32, i32 = torch.float32, torch.int32
 
 
+def detect(image: torch.Tensor, threshold: torch.Tensor, mats: FrontendMatrices,
+           cfg: EdgeDetectorConfig, cam: CameraConfig, field_scale: int = 1) -> T.EdgeMap:
+    """Detect keylines in an (already undistorted, gain-applied) float image;
+    ``threshold`` is the auto-gained detection threshold carried in VioState."""
+    em, _aux = _detect_core(image, threshold, mats, cfg, cam, field_scale)
+    return em
+
+
 def detect_with_seeds(image: torch.Tensor, threshold: torch.Tensor, mats: FrontendMatrices,
                       cfg: EdgeDetectorConfig, cam: CameraConfig, field_scale: int,
                       search_range: int):

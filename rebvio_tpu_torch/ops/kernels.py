@@ -1,5 +1,6 @@
-"""Wrappers of the five CUDA kernels of the VIO step, their plain PyTorch
-versions, and their launch counters.
+"""Wrappers of the seven CUDA kernels of the port (five of the VIO step, two
+of the loop-closure and field tools), their plain PyTorch versions, and
+their launch counters.
 
 | kernel      | CUDA source           | replaces (rebvio_tpu/ops/pallas_kernels.py) |
 |-------------|-----------------------|---------------------------------------------|
@@ -8,6 +9,8 @@ versions, and their launch counters.
 | tube_match  | csrc/tube_match.cu    | tube_match_pallas (K4)                      |
 | reg_ekf     | csrc/reg_ekf.cu       | reg_ekf_pallas (K5)                         |
 | estimate_bias | csrc/sab.cu         | estimate_bias_pallas (K3)                   |
+| att_field   | csrc/seed_scatter.cu, csrc/flood.cu | att_field_pallas (K1b)        |
+| nn_field    | csrc/seed_scatter.cu, csrc/nn_flood.cu | nn_field_pallas (K7)       |
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and launches on the current stream.  A tensor
@@ -26,7 +29,8 @@ import torch
 
 from rebvio_tpu_torch.ops import _build
 
-LAUNCHES = {"att_flood": 0, "try_vel": 0, "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0}
+LAUNCHES = {"att_flood": 0, "try_vel": 0, "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0,
+            "att_field": 0, "nn_field": 0}
 
 f32, i32 = torch.float32, torch.int32
 
@@ -140,6 +144,175 @@ def att_flood_plain(stack, search_range: int, rows: int, cols: int, scale: int):
                        torch.sqrt(gx * gx + gy * gy),
                        st[Rp:Rp + rows] * float(scale), st[0:rows] * float(scale)])
     return out.reshape(8, rows * cols)
+
+
+# --------------------------------------------------------------------------
+# K1b: scatter-seeded attribute field; K7: id-only nearest field
+
+BIG = 1e9
+
+
+def _seed_cells(pos, use, rows: int, cols: int, inv_s: float):
+    """Seed coordinates (py, px) = pos * inv_s, and per keyline its field
+    cell, ``rows*cols`` for a keyline that is not kept or falls outside."""
+    inv = torch.full((), inv_s, dtype=f32, device=pos.device)
+    px = pos[:, 0] * inv
+    py = pos[:, 1] * inv
+    fc = torch.floor(px + 0.5)
+    fr = torch.floor(py + 0.5)
+    inb = use & (fr >= 0) & (fr < rows) & (fc >= 0) & (fc < cols)
+    cell = torch.where(inb, fr.to(torch.int64) * cols + fc.to(torch.int64), rows * cols)
+    return py, px, cell, inb
+
+
+def seed_winner_plain(pos, use, rows: int, cols: int, inv_s: float):
+    """Per field cell the largest kept keyline index that rounds into it
+    (the sequential scatter's last writer), -1 where none; one scatter-max.
+    Returns (winner [rows*cols] int32, py [K], px [K])."""
+    K = pos.shape[0]
+    n = rows * cols
+    py, px, cell, inb = _seed_cells(pos, use, rows, cols, inv_s)
+    k = torch.arange(K, dtype=i32, device=pos.device)
+    win = torch.full((n + 1,), -1, dtype=i32, device=pos.device)
+    win = win.scatter_reduce(0, cell, torch.where(inb, k, -1), reduce="amax")
+    return win[:n], py, px
+
+
+def _check_table(pos, grad, use, name):
+    K = pos.shape[0]
+    _check(pos, f32, (K, 2), name + " pos")
+    if grad is not None:
+        _check(grad, f32, (K, 2), name + " grad")
+    _check(use, torch.bool, (K,), name + " use")
+    if K >= 1 << 24:
+        raise ValueError(f"{name}: keyline ids ride as float32, exact only below 2^24")
+    return K
+
+
+def _seed_winner(lib, pos, use, rows: int, cols: int, inv_s: float) -> torch.Tensor:
+    winner = torch.empty((rows * cols,), dtype=i32, device=pos.device)
+    err = lib.rk_seed_winner(_ptr(pos), _ptr(use), pos.shape[0], inv_s, rows, cols,
+                             _ptr(winner), _stream(pos))
+    _raise_on(err, "seed_winner")
+    return winner
+
+
+def att_field(pos, grad, use, search_range: int, rows: int, cols: int,
+              scale: int) -> torch.Tensor:
+    """Attribute field from the keyline table (csrc/seed_scatter.cu, then
+    csrc/flood.cu): ``pos``, ``grad`` [K, 2] and the gate ``use`` [K] bool
+    seed the region stack (largest index wins a shared cell, whole row from
+    the winner), and K1's flood runs on it.  ``search_range``, ``rows``,
+    ``cols`` in image units; returns the ``[8, N]`` planes of the
+    ``ceil(rows/scale) x ceil(cols/scale)`` field."""
+    from rebvio_tpu_torch.ops.distance_field import field_geometry
+
+    if not _on_cuda(pos, grad, use):
+        return att_field_plain(pos, grad, use, search_range, rows, cols, scale)
+    _check_table(pos, grad, use, "att_field")
+    frows, fcols, sr = field_geometry(search_range, rows, cols, scale)
+    pad, Rp = flood_layout(frows, sr)
+    lib = _build.load()
+    inv_s = 1.0 / scale
+    winner = _seed_winner(lib, pos, use, frows, fcols, inv_s)
+    stack = torch.empty((5 * Rp, fcols), dtype=f32, device=pos.device)
+    err = lib.rk_seed_stack(_ptr(pos), _ptr(grad), _ptr(winner), inv_s, frows, fcols, pad,
+                            _ptr(stack), _stream(pos))
+    _raise_on(err, "att_field")
+    LAUNCHES["att_field"] += 1
+    return att_flood(stack, sr, frows, fcols, scale)
+
+
+def seed_stack_plain(pos, grad, use, search_range: int, rows: int, cols: int, scale: int):
+    """The flood's ``[5*(frows+PAD), fcols]`` region stack seeded from the
+    keyline table: each cell takes the five values (py, px, id, gx, gy) of
+    its winner, every other cell the sentinels (BIG, BIG, -1, 0, 0)."""
+    from rebvio_tpu_torch.ops.distance_field import field_geometry
+
+    frows, fcols, sr = field_geometry(search_range, rows, cols, scale)
+    pad, Rp = flood_layout(frows, sr)
+    winner, py, px = seed_winner_plain(pos, use, frows, fcols, 1.0 / scale)
+    has = winner >= 0
+    w = torch.clamp(winner, min=0).to(torch.int64)
+    planes = torch.stack([
+        torch.where(has, py[w], BIG), torch.where(has, px[w], BIG),
+        torch.where(has, winner.to(f32), -1.0),
+        torch.where(has, grad[w, 0], 0.0), torch.where(has, grad[w, 1], 0.0)])
+    fill = torch.tensor([BIG, BIG, -1.0, 0.0, 0.0], dtype=f32, device=pos.device)
+    stack = fill[:, None, None].expand(5, Rp, fcols).contiguous()
+    stack[:, :frows, :] = planes.reshape(5, frows, fcols)
+    return stack.reshape(5 * Rp, fcols)
+
+
+def att_field_plain(pos, grad, use, search_range: int, rows: int, cols: int, scale: int):
+    """att_field_pallas: the seeding as a scatter-max and a gather of the
+    winners, then ``att_flood_plain``."""
+    from rebvio_tpu_torch.ops.distance_field import field_geometry
+
+    frows, fcols, sr = field_geometry(search_range, rows, cols, scale)
+    stack = seed_stack_plain(pos, grad, use, search_range, rows, cols, scale)
+    return att_flood_plain(stack, sr, frows, fcols, scale)
+
+
+def nn_field(pos, use, search_range: int, rows: int, cols: int) -> torch.Tensor:
+    """Nearest-keyline id field (csrc/seed_scatter.cu, then csrc/nn_flood.cu):
+    ``[rows*cols]`` int32 ids, -1 beyond ``search_range``.  ``pos`` [K, 2],
+    ``search_range``, ``rows`` and ``cols`` are all in field units (the
+    caller scales the positions)."""
+    if not _on_cuda(pos, use):
+        return nn_field_plain(pos, use, search_range, rows, cols)
+    _check_table(pos, None, use, "nn_field")
+    n = rows * cols
+    dev = pos.device
+    lib = _build.load()
+    winner = _seed_winner(lib, pos, use, rows, cols, 1.0)
+    sid = torch.empty((2, n), dtype=i32, device=dev)
+    fst = torch.empty((2, 3 * n), dtype=f32, device=dev)
+    out = torch.empty((n,), dtype=i32, device=dev)
+    err = lib.rk_nn_flood(_ptr(pos), _ptr(winner), _ptr(sid[0]), _ptr(fst[0]), _ptr(sid[1]),
+                          _ptr(fst[1]), _ptr(out), rows, cols, int(search_range),
+                          _stream(pos))
+    _raise_on(err, "nn_field")
+    LAUNCHES["nn_field"] += 1
+    return out
+
+
+def nn_field_plain(pos, use, search_range: int, rows: int, cols: int):
+    """nn_field_pallas's body: per-plane rolls (rows wrap modulo ``rows``,
+    columns modulo ``cols``) and selects, the state updated after every
+    direction."""
+    from rebvio_tpu_torch.ops.distance_field import flood_steps
+
+    dev = pos.device
+    winner, py, px = seed_winner_plain(pos, use, rows, cols, 1.0)
+    has = winner >= 0
+    w = torch.clamp(winner, min=0).to(torch.int64)
+    sid = winner.reshape(rows, cols)
+    sy = torch.where(has, py[w], BIG).reshape(rows, cols)
+    sx = torch.where(has, px[w], BIG).reshape(rows, cols)
+    yy = torch.arange(rows, dtype=f32, device=dev)[:, None]
+    xx = torch.arange(cols, dtype=f32, device=dev)[None, :]
+
+    def d2_of(cid, csy, csx):
+        a = yy - csy
+        b = xx - csx
+        return torch.where(cid >= 0, a * a + b * b, BIG)
+
+    best = d2_of(sid, sy, sx)
+    for s in flood_steps(search_range):
+        for dy in (-s, 0, s):
+            for dx in (-s, 0, s):
+                if dy == 0 and dx == 0:
+                    continue
+                cid, csy, csx = (torch.roll(p, (dy, dx), (0, 1)) for p in (sid, sy, sx))
+                cd2 = d2_of(cid, csy, csx)
+                better = cd2 < best
+                sid = torch.where(better, cid, sid)
+                sy = torch.where(better, csy, sy)
+                sx = torch.where(better, csx, sx)
+                best = torch.where(better, cd2, best)
+    r2 = float(search_range * search_range)
+    return torch.where(best <= r2, sid, -1).reshape(-1)
 
 
 # --------------------------------------------------------------------------

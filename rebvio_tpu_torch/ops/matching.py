@@ -20,20 +20,21 @@ f32, i32 = torch.float32, torch.int32
 def rotate_keylines(em: T.EdgeMap, R: torch.Tensor, fm: float) -> T.EdgeMap:
     """Forward-rotate keyline positions, gradients and inverse depth
     (edge_map.cpp:58-71); the gradient norm stays stale, as in the
-    reference."""
+    reference.  ``R`` may carry leading candidate dimensions ``[..., 3, 3]``:
+    the rotated fields then come back as ``[..., K, 2]`` / ``[..., K]``."""
     x = em.pos_img[:, 0] / fm
     y = em.pos_img[:, 1] / fm
-    q = torch.stack([x, y, torch.ones_like(x)], dim=-1) @ R.T
-    qz = q[:, 2]
+    q = torch.stack([x, y, torch.ones_like(x)], dim=-1) @ R.mT
+    qz = q[..., 2]
     ok = torch.abs(qz) > 0.0
     qz_safe = torch.where(ok, qz, 1.0)
-    new_pos_img = torch.stack([q[:, 0] / qz_safe * fm, q[:, 1] / qz_safe * fm], dim=-1)
-    pos_img = torch.where(ok[:, None], new_pos_img, em.pos_img)
+    new_pos_img = torch.stack([q[..., 0] / qz_safe * fm, q[..., 1] / qz_safe * fm], dim=-1)
+    pos_img = torch.where(ok[..., None], new_pos_img, em.pos_img)
     rho = torch.where(ok, em.rho / qz_safe, em.rho)
     sigma_rho = torch.where(ok, em.sigma_rho / qz_safe, em.sigma_rho)
-    g = torch.stack([em.grad[:, 0], em.grad[:, 1], torch.zeros_like(x)], dim=-1) @ R.T
+    g = torch.stack([em.grad[:, 0], em.grad[:, 1], torch.zeros_like(x)], dim=-1) @ R.mT
     return em.replace(pos_img=pos_img, rho=rho, sigma_rho=sigma_rho,
-                      grad=g[:, :2].contiguous())
+                      grad=g[..., :2].contiguous())
 
 
 def estimate_quantile(em: T.EdgeMap, percentile: float, num_bins: int) -> torch.Tensor:

@@ -52,7 +52,8 @@ def detect_frame(state: T.VioState, frame: torch.Tensor, mats: FrontendMatrices,
     cam = config.camera
     new_map, stack = edge_detect.detect_with_seeds(
         frame, threshold, mats, config.detector, cam, config.field_scale, sr)
-    att = DF.build_att_field(stack, sr, cam.rows, cam.cols, config.field_scale)
+    att = DF.build_att_field(new_map, sr, cam.rows, cam.cols, config.field_scale,
+                              seed_stack=stack)
     return new_map.replace(att_img=att), threshold
 
 

@@ -109,7 +109,9 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     walked = {p.relative_to(REPO).as_posix() for p in files}
     for module in ("ops/sab.py", "ops/imu.py", "ops/kernels.py", "camera.py", "pipeline.py",
-                   "runner.py", "interop.py", "profile_step.py"):
+                   "runner.py", "interop.py", "profile_step.py", "run.py",
+                   "ba/pose_graph.py", "ba/loop_closure.py", "ba/keyframe_map.py",
+                   "tools/jfa_ab.py"):
         assert "rebvio_tpu_torch/" + module in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), str(path))

@@ -104,3 +104,64 @@ def small_frame_pair(monkeypatch):
                                  seed_stack=stack)
         maps.append(em.replace(att_img=att))
     return maps[0], maps[1], jc
+
+
+def make_random_map(rng, K, kmax, H, W, margin=3, unique_cells=True):
+    """Random valid keylines with plausible geometry (the port's copy of
+    tests/helpers.make_random_map), as a JAX EdgeMap and the same map as the
+    port's EdgeMap on the CPU.  ``unique_cells`` keeps one keyline per pixel
+    cell, as the detector does; without it positions are free, so several
+    keylines may share a cell even at scale 1."""
+    pos = np.zeros((K, 2), np.float32)
+    cells_used = set()
+    for i in range(K):
+        for _ in range(200):
+            c = np.array([rng.uniform(margin, W - margin), rng.uniform(margin, H - margin)])
+            cell = (int(np.floor(c[1] + 0.5)), int(np.floor(c[0] + 0.5)))
+            if not unique_cells or cell not in cells_used:
+                cells_used.add(cell)
+                pos[i] = c
+                break
+        else:
+            raise RuntimeError("could not place unique keyline")
+    ang = rng.uniform(0, 2 * np.pi, K)
+    mag = rng.uniform(50.0, 300.0, K)
+    grad = np.stack([np.cos(ang) * mag, np.sin(ang) * mag], axis=-1).astype(np.float32)
+    return map_from_table(pos, grad, kmax, H, W,
+                          rho=rng.uniform(0.05, 3.0, K).astype(np.float32),
+                          sigma_rho=rng.uniform(0.1, 10.0, K).astype(np.float32))
+
+
+def map_from_table(pos, grad, kmax, H, W, valid=None, rho=None, sigma_rho=None,
+                   threshold=-1.0):
+    """(JAX EdgeMap, port EdgeMap) holding the keyline table ``pos``/``grad``
+    [K, 2] in slots 0..K-1; ``valid`` [K] defaults to all."""
+    import jax.numpy as jnp
+
+    from rebvio_tpu import types as jT
+
+    K = len(pos)
+    pos = np.asarray(pos, np.float32)
+    grad = np.asarray(grad, np.float32)
+    v = np.zeros(kmax, bool)
+    v[:K] = True if valid is None else valid
+    id_img = np.full((H, W), -1, np.int32)
+    for i in range(K):
+        r, c = int(np.floor(pos[i, 1] + 0.5)), int(np.floor(pos[i, 0] + 0.5))
+        if v[i] and 0 <= r < H and 0 <= c < W:
+            id_img[r, c] = i
+    pos_img = pos - np.array([W / 2.0, H / 2.0], np.float32)
+
+    def pad(a, fill=0.0):
+        out = np.full((kmax,) + a.shape[1:], fill, a.dtype)
+        out[:K] = a
+        return jnp.asarray(out)
+
+    em = jT.empty_edge_map(kmax, H, W).replace(
+        pos=pad(pos), pos_img=pad(pos_img), match_pos_img=pad(pos_img),
+        grad=pad(grad), grad_norm=pad(np.linalg.norm(grad, axis=-1).astype(np.float32)),
+        valid=jnp.asarray(v), count=jnp.asarray(int(v.sum()), jnp.int32),
+        kl_id_img=jnp.asarray(id_img), threshold=jnp.asarray(threshold, jnp.float32))
+    if rho is not None:
+        em = em.replace(rho=pad(rho, jT.RHO_INIT), sigma_rho=pad(sigma_rho, 20.0))
+    return em, edge_map_t(em)
