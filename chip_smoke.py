@@ -10,16 +10,21 @@ field timing tool.
 Phases (any failure exits non-zero):
   1. device: card name and power limit, torch/CUDA versions, kernel build;
   2. kernels: each CUDA kernel of the paths (att_flood, try_vel,
-     tube_match, reg_ekf, estimate_bias, att_field, nn_field) against its
-     plain PyTorch version on the card, on inputs taken from the paths at
-     their shapes (a VO frame pair and its post-step map; estimate_bias at
-     the first frame the SAB filter is engaged) plus seeded random cases
+     minimize_vel, tube_match, reg_ekf, estimate_bias, att_field, nn_field)
+     against its plain PyTorch version on the card, on inputs taken from the
+     paths at their shapes (a VO frame pair and its post-step map;
+     estimate_bias at the first frame the SAB filter is engaged; the fused LM
+     solve minimize_vel with every iteration's gain and accept flag, launched
+     twice for bit-identity) plus seeded random cases
      (for the two scatter-seeded fields: several keylines per cell, gated-out
      keylines on top of kept ones, keylines outside the field), with its
      time, the plain version's time and its bound; the seeding's winner
      plane against the plain scatter-max; and the scatter-seeded field
      (att_field) against the dense-seeded one (att_flood) on the detector's
-     own map;
+     own map; the Cholesky inverse (csrc/chol_inverse.cu, no TPU kernel behind
+     it) on the three matrices a VIO frame inverts and on one that is not
+     positive definite; then the single-pass entry point tracker.try_vel
+     driven over the frame pair with the counters set to 0 before it;
   3. VO slice: VioRunner(undistort=False) over 24 synthetic frames, with the
      launch counters set to 0 just before and read just after, the
      trajectory held against the committed JAX golden
@@ -31,13 +36,14 @@ Phases (any failure exits non-zero):
      binary's golden (tests/data/anchor_ref_trajectory_seed0_120.txt); a
      KeyframeMapBuilder (a keyframe every 5 frames, maps stored on the card)
      rides along, fed per frame;
-  5. loop closure: a 3.5 deg yaw drift is injected into the 24-keyframe
-     chain from keyframe 12 on, then build_graph_from_run (coarse rotation
+  5. loop closure: over keyframes 12..23 of the run's 24, an 8 deg yaw drift
+     is injected from the sixth of them on, then build_graph_from_run (coarse rotation
      sweep, tracker registration against the scatter-seeded field) and 15
      damped Gauss-Newton iterations over the pose graph, counters as in 3,
      held against the committed JAX golden
      (tests/data/torch_golden_lc_euroc_seed0_120.json); before it, att_field
-     and nn_field against their plain versions on a stored keyframe map;
+     and nn_field against their plain versions on a stored keyframe map and
+     minimize_vel against its plain version on one candidate pair;
   6. field tool: python -m rebvio_tpu_torch.tools.jfa_ab's main (nn_field,
      att_field and att_flood timed at the fast profile), counters as in 3.
 The last line is {"ok": true, "device": {...}}.
@@ -97,6 +103,8 @@ LC_BOUNDS = dict(pairs_missing=0, nfm_rel=0.45, angle_deg=7.7, kept_flips=1,
 REPLACES = {
     "att_flood": "rebvio_tpu/ops/pallas_kernels.py:206",
     "try_vel": "rebvio_tpu/ops/pallas_kernels.py:314",
+    # the same Pallas pass, 1 + iterations times with the LM update between
+    "minimize_vel": "rebvio_tpu/ops/pallas_kernels.py:314",
     "tube_match": "rebvio_tpu/ops/pallas_kernels.py:921",
     "reg_ekf": "rebvio_tpu/ops/pallas_kernels.py:422",
     "estimate_bias": "rebvio_tpu/ops/pallas_kernels.py:720",
@@ -105,11 +113,13 @@ REPLACES = {
 }
 # outputs (index -> planes; None = the whole output) that hold ids and must
 # match the plain version exactly
-EXACT = {"att_flood": {0: (2,)}, "try_vel": {4: (None,)}, "tube_match": {0: (0, 1)},
+EXACT = {"att_flood": {0: (2,)}, "try_vel": {4: (None,)}, "minimize_vel": {5: (None,)},
+         "tube_match": {0: (0, 1)},
          "reg_ekf": {}, "estimate_bias": {}, "att_field": {0: (2,)}, "nn_field": {0: (None,)}}
 SOURCES = {
     "att_flood": "rebvio_tpu_torch/csrc/flood.cu",
     "try_vel": "rebvio_tpu_torch/csrc/try_vel.cu",
+    "minimize_vel": "rebvio_tpu_torch/csrc/try_vel.cu",
     "tube_match": "rebvio_tpu_torch/csrc/tube_match.cu",
     "reg_ekf": "rebvio_tpu_torch/csrc/reg_ekf.cu",
     "estimate_bias": "rebvio_tpu_torch/csrc/sab.cu",
@@ -121,6 +131,7 @@ SOURCES = {
 # relative tolerance of each kernel against its plain version on the card.
 # The elementwise kernels repeat the plain arithmetic op for op (1e-6);
 # try_vel's Gram/score sums add up 16000 terms in another order (1e-4);
+# minimize_vel has its own comparison (MV_TOL below);
 # estimate_bias (normwise) sums its small products in another order than
 # cuBLAS, through a 5-step Gauss-Newton chain whose bias block carries the
 # ~1e13 prior information (measured up to 3.3e-6 on the card, engaged VIO
@@ -128,6 +139,21 @@ SOURCES = {
 # arithmetic op for op (1e-6; 0 is expected) and nn_field's output is ids
 TOL_REL = {"att_flood": 1e-6, "try_vel": 1e-4, "tube_match": 1e-6, "reg_ekf": 1e-6,
            "estimate_bias": 1e-4, "att_field": 1e-6, "nn_field": 0.0}
+# minimize_vel against minimize_vel_plain: 1 + iterations dependent passes, each
+# with Gram sums of 16000 terms in another order (4.3e-6 relative per pass).
+# Every accept flag must agree, unless the first that differs sits on a trial
+# whose score equals the accepted one within that summation noise (`flip_rel`:
+# the gain's numerator is then rounding, not a decision).  With equal flags:
+# vel within 1e-5 + 1e-3 |vel| (tests/test_torch_tracker.py's bound against
+# JAX), JtJ and JtF within 1e-4 of JtJ's largest entry, the score within 1e-4
+# relative, the last pass's residuals within 1e-3 px, forward ids equal.
+MV_TOL = dict(vel_abs=1e-5, vel_rel=1e-3, gram_rel=1e-4, score_rel=1e-4, res_abs=1e-3,
+              flip_rel=1e-5)
+# chol_inverse against its plain version on the card: the same float32
+# operations in the same order, so equal bit for bit up to the last-place
+# rounding of the two sqrt / division implementations (1e-6 relative to the
+# inverse's largest entry is allowed; 0 is expected), NaN in the same places
+CHOL_TOL_REL = 1e-6
 
 
 def prefix(sq, n: int):
@@ -185,6 +211,67 @@ def sab_flops(iters: int) -> int:
                + mm(11, 11, 6) + 3 * mm(6, 11, 1) + mm(6, 11, 6) + 120)  # + residual, Rodrigues
     step = problem + gj(7) + mm(7, 7, 1) + 7
     return iters * step + problem + gj(7) + gj(6) + 2 * mm(6, 6, 1) + mm(3, 3, 1)
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Equal bit for bit (NaN payloads included)."""
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def check_minimize_vel(torch, kernels, label, args):
+    """The fused LM solve against ``minimize_vel_plain`` on one case (see
+    MV_TOL), launched twice for bit-identity.  Returns (record, error)."""
+    got = kernels.minimize_vel(*args, debug=True)
+    again = kernels.minimize_vel(*args, debug=True)
+    ref = kernels.minimize_vel_plain(*args, debug=True)
+    pos_img, rho, sr, grad, use_f, vel0, att, geom, _iters = args
+    first = kernels.try_vel(pos_img, rho, sr, grad, use_f, torch.zeros_like(rho), vel0, att,
+                            geom)[0]
+    torch.cuda.synchronize()
+    repeat = all(bits_equal(torch, a, b) for a, b in zip(got, again))
+    vel, JtJ, JtF, score, res, mif, gains, acc, trials = got
+    rvel, rJtJ, rJtF, rscore, rres, rmif, rgains, racc, rtrials = ref
+    acc_l, racc_l = acc.tolist(), racc.tolist()
+    flip = next((i for i, (a, b) in enumerate(zip(acc_l, racc_l)) if a != b), None)
+    gmax = float(rJtJ.abs().max())
+    err = dict(vel=float((vel - rvel).abs().max()),
+               gram=float(max((JtJ - rJtJ).abs().max(), (JtF - rJtF).abs().max())),
+               score=abs(float(score) - float(rscore)),
+               residuals=float((res - rres).abs().max()),
+               ids_differing=int((mif != rmif).sum()))
+    rec = {"check": "minimize_vel vs minimize_vel_plain", "case": label,
+           "keylines_matched": int((mif >= 0).sum()),
+           "accepts": acc_l, "accepts_plain": racc_l, "gains": gains.tolist(),
+           "gains_plain": rgains.tolist(), "first_flip": flip,
+           "two_launches_bit_identical": repeat, "abs_err": err, "tol": MV_TOL,
+           "vel": vel.tolist(), "score": float(score)}
+    rec["max_abs_err"] = max(err["vel"], err["gram"], err["score"], err["residuals"])
+    if not repeat:
+        return rec, f"minimize_vel ({label}): two launches on the same input differ"
+    for t in (vel, JtJ, JtF, score, res):
+        if not bool(torch.isfinite(t).all()):
+            return rec, f"minimize_vel ({label}): non-finite output"
+    if flip is not None:
+        # the accepted score before the iteration that flipped, on both sides
+        worst = 0.0
+        for a_l, t_l, f0 in ((acc_l, trials.tolist(), float(first)),
+                             (racc_l, rtrials.tolist(), float(first))):
+            before = ([f0] + [t for a, t in zip(a_l[:flip], t_l[:flip]) if a])[-1]
+            worst = max(worst, abs(before - t_l[flip]) / max(abs(before), 1e-30))
+        rec["flip_numerator_rel"] = worst
+        if worst > MV_TOL["flip_rel"]:
+            return rec, (f"minimize_vel ({label}): accept flags differ at iteration {flip} "
+                         f"with a decided gain (numerator {worst:.3g} of the score)")
+        return rec, None        # a flip at a zero gain: the runs part ways by one step
+    lim_vel = MV_TOL["vel_abs"] + MV_TOL["vel_rel"] * float(rvel.abs().max())
+    bad = [k for k, ok in (("vel", err["vel"] <= lim_vel),
+                           ("gram", err["gram"] <= MV_TOL["gram_rel"] * gmax),
+                           ("score", err["score"] <= MV_TOL["score_rel"] * abs(float(rscore))),
+                           ("residuals", err["residuals"] <= MV_TOL["res_abs"]),
+                           ("ids", err["ids_differing"] == 0)) if not ok]
+    return rec, (f"minimize_vel ({label}): {bad} out of tolerance: {err}" if bad else None)
 
 
 def read_vio_golden(path):
@@ -248,7 +335,8 @@ def main() -> int:
     from rebvio_tpu_torch.ba import loop_closure as lc
     from rebvio_tpu_torch.ba import pose_graph as pgm
     from rebvio_tpu_torch.ba.keyframe_map import KeyframeMapBuilder
-    from rebvio_tpu_torch.geometry import so3
+    from rebvio_tpu_torch.geometry import linalg, so3
+    from rebvio_tpu_torch.ops import tracker
     from rebvio_tpu_torch.runner import RunResult, VioRunner
     from rebvio_tpu_torch.tools import jfa_ab
 
@@ -275,8 +363,18 @@ def main() -> int:
     # (frames 0, 1), estimate_bias on the VIO stream up to the first frame
     # with the SAB filter engaged (num_frames > 4 + init_bias_frame_num)
     captured = {}
-    step_names = ["att_flood", "try_vel", "tube_match", "reg_ekf", "estimate_bias"]
+    step_names = ["att_flood", "minimize_vel", "tube_match", "reg_ekf", "estimate_bias"]
     originals = {name: getattr(kernels, name) for name in step_names}
+    solve_maps, chol_inputs = [], []     # (old map, field) of each LM solve; chol_inverse's inputs
+    plain_solve, plain_chol = tracker.minimize_vel, linalg.chol_inverse
+
+    def recording_solve(old, att, *rest, **kw):
+        solve_maps.append((old, att))
+        return plain_solve(old, att, *rest, **kw)
+
+    def recording_chol(m):
+        chol_inputs.append(m.clone())
+        return plain_chol(m)
 
     def recorder(name):
         def call(*args):
@@ -288,24 +386,35 @@ def main() -> int:
     def capture(names, run_cfg, sq, n, undistort):
         for name in names:
             setattr(kernels, name, recorder(name))
+        tracker.minimize_vel, linalg.chol_inverse = recording_solve, recording_chol
         try:
             r = VioRunner(run_cfg, undistort=undistort, device="cuda")
             r.run(prefix(sq, n))
         finally:
             for name in names:
                 setattr(kernels, name, originals[name])
+            tracker.minimize_vel, linalg.chol_inverse = plain_solve, plain_chol
         return r
 
     vo_names = [n for n in step_names if n != "estimate_bias"]
     map1 = capture(vo_names, cfg, seq, 2, undistort=False).state.edge_map   # frame 1, post-step
     engaged_call = 4 + vcfg.imu.init_bias_frame_num   # call i runs at frame i + 1
+    vo_solve = solve_maps[0]                        # frame 0's map rotated, frame 1's field
     capture(["estimate_bias"], vcfg, vseq, engaged_call + 2, undistort=True)
     missing = set(step_names) - set(captured)
     if missing:
         return fail(f"the slices never called {sorted(missing)}")
+    # the three matrices the last (SAB-engaged) VIO frame inverted: gyro-bias
+    # fusion's 6x6, the refinement's 6x6 information, the SAB prior's 7x7
+    vio_chol = chol_inputs[-3:]
+    if sorted(tuple(m.shape) for m in vio_chol) != [(6, 6), (6, 6), (7, 7)]:
+        return fail(f"chol_inverse's inputs on a VIO frame: {[tuple(m.shape) for m in vio_chol]}")
 
     rng = np.random.RandomState(0)
     cases = {name: [("frame 1", captured[name][0])] for name in vo_names}
+    # the single pass on the solve's inputs: zero residuals, the starting velocity
+    mv = captured["minimize_vel"][0]
+    cases["try_vel"] = [("frame 1", (*mv[:5], torch.zeros_like(mv[1]), mv[5], mv[6], mv[7]))]
     cases["estimate_bias"] = [(f"VIO frame {engaged_call + 1} (SAB engaged)",
                                captured["estimate_bias"][engaged_call])]
 
@@ -326,11 +435,13 @@ def main() -> int:
     rs[4, ys, xs] = rng.normal(0, 100, len(ys))
     cases["att_flood"].append(("random seeds", (on_dev(rs.reshape(st.shape)), sr, rows, cols,
                                                 scale)))
-    a = list(captured["try_vel"][0])
+    a = list(cases["try_vel"][0][1])
     K = a[1].shape[0]
     a[5] = on_dev(rng.uniform(0, 6, K).astype(np.float32))        # residuals
     a[6] = on_dev(rng.normal(0, 0.02, 3).astype(np.float32))       # vel
     cases["try_vel"].append(("random vel/residuals", tuple(a)))
+    cases["minimize_vel"].append(("frame 1, random starting velocity",
+                                  (*mv[:5], a[6], *mv[6:])))
     a = list(captured["tube_match"][0])
     th = rng.uniform(-0.05, 0.05)
     a[3] = on_dev(np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]],
@@ -414,6 +525,8 @@ def main() -> int:
 
     report = {}
     for name in REPLACES:
+        if name == "minimize_vel":      # its own comparison, below
+            continue
         worst_abs, worst_rel, exact = 0.0, 0.0, {}
         for label, args in cases[name]:
             got = as_list(getattr(kernels, name)(*args))
@@ -448,6 +561,46 @@ def main() -> int:
         report[name] = dict(max_abs_err=worst_abs, max_rel_err=worst_rel, tol_rel=tol,
                             exact=exact, ms=kern_ms, plain_ms=plain_ms)
 
+    # the fused LM solve: every accept flag, then the values (MV_TOL)
+    worst_abs = 0.0
+    for label, args in cases["minimize_vel"]:
+        rec, error = check_minimize_vel(torch, kernels, label, args)
+        print(json.dumps(rec), flush=True)
+        if error:
+            return fail(error)
+        worst_abs = max(worst_abs, rec["max_abs_err"])
+    args = cases["minimize_vel"][0][1]
+    report["minimize_vel"] = dict(
+        max_abs_err=worst_abs, tol=MV_TOL,
+        ms=median_ms(torch, lambda: kernels.minimize_vel(*args)),
+        plain_ms=median_ms(torch, lambda: kernels.minimize_vel_plain(*args)))
+
+    # the Cholesky inverse (no TPU kernel behind it: its own line, no row below)
+    bad = torch.eye(6, device=dev)
+    bad[1, 1] = -1.0
+    chol = {"check": "chol_inverse vs chol_inverse_plain", "tol_rel": CHOL_TOL_REL, "cases": []}
+    for label, m in [("gyro-bias fusion / refinement / SAB prior", m) for m in vio_chol] + [
+            ("not positive definite", bad), ("batch of the three 6x6", torch.stack(
+                [m for m in vio_chol if m.shape[-1] == 6] + [bad]))]:
+        got, want = linalg.chol_inverse(m), linalg.chol_inverse_plain(m)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        same_mask = bool(torch.equal(fin, torch.isfinite(got))
+                         and torch.equal(torch.isnan(want), torch.isnan(got)))
+        d = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+        scale = float(want[fin].abs().max()) if bool(fin.any()) else 1.0
+        chol["cases"].append({"case": label, "shape": list(m.shape), "max_abs_err": d,
+                              "max_rel_err": d / scale, "nan_entries": int((~fin).sum()),
+                              "bit_identical": bits_equal(torch, got, want)})
+        if not same_mask or d > CHOL_TOL_REL * scale:
+            return fail(f"chol_inverse differs from its plain version ({label}): {chol}")
+    if not chol["cases"][3]["nan_entries"]:
+        return fail("chol_inverse gave no NaN on a matrix that is not positive definite")
+    m7 = [m for m in vio_chol if m.shape[-1] == 7][0]
+    chol["ms"] = median_ms(torch, lambda: linalg.chol_inverse(m7))
+    chol["plain_ms"] = median_ms(torch, lambda: linalg.chol_inverse_plain(m7))
+    print(json.dumps(chol), flush=True)
+
     # bound: least bytes (each input read once, each output written once;
     # gathered field/neighbour values counted per access) and float32 ops
     st, sr, rows, cols, _ = cases["att_flood"][0][1]
@@ -460,8 +613,15 @@ def main() -> int:
         steps, s = steps + 1, s // 2
     steps += 1
     b = {"att_flood": bound_ms(st.numel() * 4 + 8 * n * 4, steps * 8 * 7 * n + 4 * n)}
-    K = captured["try_vel"][0][1].shape[0]
+    K = cases["try_vel"][0][1][1].shape[0]
     b["try_vel"] = bound_ms(K * (8 * 4 + 6 * 4 + 8) + 12 + 68, K * 75)
+    # minimize_vel: the seven [K] planes and the starting velocity read once, 6
+    # gathered field values per keyline per pass, residuals and forward ids
+    # written once with the 16 solve outputs; a pass's operations per keyline
+    # as try_vel's, plus the LM update's ~150 per iteration
+    passes = 1 + cases["minimize_vel"][0][1][8]
+    b["minimize_vel"] = bound_ms(K * 7 * 4 + 12 + passes * K * 6 * 4 + K * 8 + 64,
+                                 passes * K * 75 + (passes - 1) * 150)
     P = captured["tube_match"][0][4].P
     b["tube_match"] = bound_ms(K * 13 * 4 + P * K * 10 * 4 + 16 + 12 * K * 4, P * K * 55)
     b["reg_ekf"] = bound_ms(K * (15 * 4 + 1) + K * 2 * 5 * 4 + 12 + 2 * K * 4, K * 80)
@@ -479,6 +639,32 @@ def main() -> int:
     for name in REPLACES:
         report[name]["bound_ms"], report[name]["bound_by"] = b[name]
         print(json.dumps({"kernel": name, **report[name]}), flush=True)
+
+    # the single-pass entry point, driven as a caller would: the frame pair's
+    # score landscape along the solve's step, six trial velocities, each pass
+    # reweighted by the residuals of the one before
+    old0, att0 = vo_solve
+    srm = tracker.estimate_quantile(old0, cfg.core.quantile_cutoff, cfg.core.quantile_num_bins)
+    v_end = kernels.minimize_vel(*cases["minimize_vel"][0][1])[0]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    residuals = torch.zeros_like(old0.rho)
+    scan = []
+    for frac in (0.0, 0.25, 0.5, 0.75, 1.0, 1.25):
+        sc, _JtJ, _JtF, residuals, _mif = tracker.try_vel(
+            old0, att0, v_end * frac, srm, residuals, cfg.core, cfg.camera, cfg.field_scale)
+        scan.append(sc)
+    torch.cuda.synchronize()
+    pass_launches = dict(kernels.LAUNCHES)
+    scan = [float(x) for x in scan]
+    print(json.dumps({"slice": "tracker.try_vel, score along the solve's step",
+                      "fractions": [0.0, 0.25, 0.5, 0.75, 1.0, 1.25], "scores": scan,
+                      "launches": pass_launches}), flush=True)
+    want = {**{k: 0 for k in kernels.LAUNCHES}, "try_vel": len(scan)}
+    if pass_launches != want:
+        return fail(f"single-pass launch counts {pass_launches}, expected {want}")
+    if not (np.isfinite(scan).all() and scan[4] < scan[0]):
+        return fail(f"the score at the solve's velocity is not below the start's: {scan}")
 
     # ---------------- phase 3: the slice, 24 frames on the card
     runner = VioRunner(cfg, undistort=False, device="cuda")
@@ -499,9 +685,11 @@ def main() -> int:
     if not res.run_ok.all():
         return fail(f"run_ok dropped at frame {int(np.argmin(res.run_ok))}")
     est = N_FRAMES - 1
-    want = {"att_flood": N_FRAMES, "try_vel": est * (1 + cfg.core.iterations),
+    # one launch per LM solve (it was 1 + iterations try_vel launches), one
+    # Cholesky inverse per frame (the refinement's covariance)
+    want = {"att_flood": N_FRAMES, "try_vel": 0, "minimize_vel": est,
             "tube_match": est, "reg_ekf": est, "estimate_bias": 0, "att_field": 0,
-            "nn_field": 0}
+            "nn_field": 0, "chol_inverse": est}
     if launches != want:
         return fail(f"launch counts {launches}, expected {want}")
     g = np.loadtxt(GOLDEN)
@@ -549,9 +737,10 @@ def main() -> int:
     if not res.run_ok.all():
         return fail(f"VIO run_ok dropped at frame {int(np.argmin(res.run_ok))}")
     est = N_VIO - 1
-    want = {"att_flood": N_VIO, "try_vel": est * (1 + vcfg.core.iterations),
+    # chol_inverse: gyro-bias fusion, the refinement's covariance, the SAB prior
+    want = {"att_flood": N_VIO, "try_vel": 0, "minimize_vel": est,
             "tube_match": est, "reg_ekf": est, "estimate_bias": est, "att_field": 0,
-            "nn_field": 0}
+            "nn_field": 0, "chol_inverse": 3 * est}
     if vlaunches != want:
         return fail(f"VIO launch counts {vlaunches}, expected {want}")
     g, gK, gg = read_vio_golden(VIO_GOLDEN)
@@ -628,6 +817,25 @@ def main() -> int:
         kf_R_d[k] = dR @ kf_R[k]
         kf_t_d[k] = dR @ (kf_t[k] - pivot) + pivot
     cand = lc.propose_candidates(kf_t_d, LC_KW["min_gap"], LC_KW["radius"])
+    # the fused LM solve against its plain version on the first candidate pair's
+    # registration (its four solves; before the counters are reset).  Its Gram
+    # entries are ~1e9, so its absolute errors stay on its own lines: the
+    # kernels line carries the frame pair's
+    kernels.minimize_vel = recorder("minimize_vel")
+    n0 = len(captured["minimize_vel"])
+    try:
+        i0, j0 = cand[0]
+        lc.register_pair(kf_maps[i0], kf_maps[j0],
+                         torch.as_tensor((kf_R[i0].T @ kf_R[j0]).astype(np.float32)).to(dev),
+                         vcfg)       # the chain's own prior, as the coarse sweep recovers it
+    finally:
+        kernels.minimize_vel = originals["minimize_vel"]
+    for r, args in enumerate(captured["minimize_vel"][n0:]):
+        rec, error = check_minimize_vel(torch, kernels, f"loop-closure pair {cand[0]}, "
+                                        f"registration round {r}", args)
+        print(json.dumps(rec), flush=True)
+        if error:
+            return fail(error)
     reg_log = []
     plain_register = lc.register_pair
 
@@ -661,9 +869,10 @@ def main() -> int:
         return fail("pose_graph.optimize gave another result on the same graph")
     hist = hist.cpu().numpy()
     n_pairs = len(cand)
-    want = {"att_flood": 2 * n_pairs, "att_field": 2 * n_pairs,
-            "try_vel": n_pairs * 4 * (1 + vcfg.core.iterations),
-            "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0, "nn_field": 0}
+    want = {"att_flood": 2 * n_pairs, "att_field": 2 * n_pairs, "try_vel": 0,
+            "minimize_vel": n_pairs * 4,        # four registration rounds a pair
+            "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0, "nn_field": 0,
+            "chol_inverse": 0}
     if lcl != want or len(reg_log) != n_pairs:
         return fail(f"loop-closure launch counts {lcl}, expected {want} for {n_pairs} pairs")
 
@@ -730,14 +939,19 @@ def main() -> int:
     tl = dict(kernels.LAUNCHES)
     calls = jfa_ab.CALLS + jfa_ab.WARM + jfa_ab.PROFILED
     want = {"nn_field": calls, "att_field": calls, "att_flood": 2 * calls, "try_vel": 0,
-            "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0}
+            "minimize_vel": 0, "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0,
+            "chol_inverse": 0}
     print(json.dumps({"slice": "field tool, fast profile (8192 keylines, field 240x376)",
                       "us_per_call_events_host_device": {k: list(v) for k, v in tool.items()},
                       "launches": tl}), flush=True)
     if tl != want:
         return fail(f"field tool launch counts {tl}, expected {want}")
 
-    path_launches = {**vlaunches, "att_field": lcl["att_field"], "nn_field": tl["nn_field"]}
+    # each kernel's count on the path that runs it: the VIO slice, the loop
+    # closure (att_field), the field tool (nn_field), the single-pass drive
+    # (try_vel: the LM solve took its place on the other paths)
+    path_launches = {**vlaunches, "att_field": lcl["att_field"], "nn_field": tl["nn_field"],
+                     "try_vel": pass_launches["try_vel"]}
     if not all(path_launches[name] > 0 for name in REPLACES):
         return fail(f"a kernel was launched no time on its path: {path_launches}")
     out = []

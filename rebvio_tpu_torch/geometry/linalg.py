@@ -1,10 +1,13 @@
 """Small fixed-size linear algebra (rebvio_tpu/geometry/linalg.py): the
-adjugate 3x3 inverse, the unrolled Cholesky inverse and the pivot-free
-Gauss-Jordan solve with the reference's NaN semantics."""
+adjugate 3x3 inverse, the unrolled Cholesky inverse (one CUDA launch on the
+card) and the pivot-free Gauss-Jordan solve with the reference's NaN
+semantics."""
 
 from __future__ import annotations
 
 import torch
+
+from rebvio_tpu_torch.ops import _build, kernels
 
 
 def invert3(m: torch.Tensor) -> torch.Tensor:
@@ -25,17 +28,33 @@ def chol_inverse(m: torch.Tensor) -> torch.Tensor:
     """Inverse via an unpivoted Cholesky factorization
     (TooN::Cholesky::get_inverse): NaN on non-positive-definite input.
 
-    The same unrolled scalar recurrence as the JAX version.  It is a chain
-    of ~n^3 dependent scalar ops, so it runs on a host copy (one small
-    readback) instead of as hundreds of one-element device launches; the
-    float32 operations are the same either way."""
-    dev = m.device
-    mm = m.detach().to("cpu")
-    n = mm.shape[-1]
+    ``m`` is a ``[..., n, n]`` float32 batch.  On a CUDA tensor the whole
+    recurrence is one launch of csrc/chol_inverse.cu (one thread per matrix,
+    n <= 8) with no host round trip; on a CPU tensor it is the plain version
+    below.  Both run the same float32 operations in the same order."""
+    if m.device.type == "cpu":
+        return chol_inverse_plain(m)
+    n = m.shape[-1]
+    if m.dtype != torch.float32 or m.ndim < 2 or m.shape[-2] != n or not 1 <= n <= 8:
+        raise ValueError(f"chol_inverse: expected float32 [..., n, n] with n <= 8, got "
+                         f"{m.dtype} {tuple(m.shape)}")
+    a = m.detach().contiguous()
+    out = torch.empty_like(a)
+    err = _build.load().rk_chol_inverse(kernels._ptr(a), kernels._ptr(out), n,
+                                        a.numel() // (n * n), kernels._stream(a))
+    kernels._raise_on(err, "chol_inverse")
+    kernels.LAUNCHES["chol_inverse"] += 1
+    return out
+
+
+def chol_inverse_plain(m: torch.Tensor) -> torch.Tensor:
+    """The same unrolled scalar recurrence as the JAX version
+    (_chol_inverse_unrolled), on ``m``'s own device."""
+    n = m.shape[-1]
     L = [[None] * n for _ in range(n)]
     for i in range(n):
         for j in range(i + 1):
-            s = mm[..., i, j]
+            s = m[..., i, j]
             for k in range(j):
                 s = s - L[i][k] * L[j][k]
             L[i][j] = torch.sqrt(s) if i == j else s / L[j][j]
@@ -47,7 +66,7 @@ def chol_inverse(m: torch.Tensor) -> torch.Tensor:
             for k in range(j + 1, i):
                 s = s + L[i][k] * Li[k][j]
             Li[i][j] = -s / L[i][i]
-    zero = torch.zeros_like(mm[..., 0, 0])
+    zero = torch.zeros_like(m[..., 0, 0])
     rows = []
     for i in range(n):
         row = []
@@ -57,7 +76,7 @@ def chol_inverse(m: torch.Tensor) -> torch.Tensor:
                 s = s + Li[k][i] * Li[k][j]
             row.append(s)
         rows.append(torch.stack(row, dim=-1))
-    return torch.stack(rows, dim=-2).to(dev)
+    return torch.stack(rows, dim=-2)
 
 
 def gj_inverse(m: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Wrappers of the seven CUDA kernels of the port (five of the VIO step, two
-of the loop-closure and field tools), their plain PyTorch versions, and
-their launch counters.
+"""Wrappers of the CUDA kernels of the port (the VIO step's, two of the
+loop-closure and field tools), their plain PyTorch versions, and their
+launch counters.
 
 | kernel      | CUDA source           | replaces (rebvio_tpu/ops/pallas_kernels.py) |
 |-------------|-----------------------|---------------------------------------------|
 | att_flood   | csrc/flood.cu         | _att_flood (K1)                             |
 | try_vel     | csrc/try_vel.cu       | try_vel_math_pallas (K2; also try_vel_pallas)|
+| minimize_vel| csrc/try_vel.cu       | the same, 1 + iterations passes + LM update |
 | tube_match  | csrc/tube_match.cu    | tube_match_pallas (K4)                      |
 | reg_ekf     | csrc/reg_ekf.cu       | reg_ekf_pallas (K5)                         |
 | estimate_bias | csrc/sab.cu         | estimate_bias_pallas (K3)                   |
@@ -17,6 +18,8 @@ outputs with ``torch.empty`` and launches on the current stream.  A tensor
 on the CPU goes to the plain version beside it (same inputs, same
 outputs); a CUDA tensor launches the kernel or raises.  ``LAUNCHES[name]``
 counts the wrapper's kernel launches (a multi-kernel call counts once).
+``chol_inverse`` (csrc/chol_inverse.cu, launched by geometry/linalg.py)
+replaces no TPU kernel and is counted here too.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ import torch
 
 from rebvio_tpu_torch.ops import _build
 
-LAUNCHES = {"att_flood": 0, "try_vel": 0, "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0,
-            "att_field": 0, "nn_field": 0}
+LAUNCHES = {"att_flood": 0, "try_vel": 0, "minimize_vel": 0, "tube_match": 0, "reg_ekf": 0,
+            "estimate_bias": 0, "att_field": 0, "nn_field": 0, "chol_inverse": 0}
 
 f32, i32 = torch.float32, torch.int32
 
@@ -316,7 +319,7 @@ def nn_field_plain(pos, use, search_range: int, rows: int, cols: int):
 
 
 # --------------------------------------------------------------------------
-# K2: fused tryVel pass
+# K2: the tryVel pass and the LM solve around it
 
 
 class TryVelGeom(NamedTuple):
@@ -333,32 +336,58 @@ class TryVelGeom(NamedTuple):
     mthr: float       # gradient-similarity threshold
 
 
-def try_vel(pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att, g: TryVelGeom):
-    """One tryVel pass (csrc/try_vel.cu).  Returns (score [], JtJ [3,3],
-    JtF [3], residuals [K], match_id_forward [K] int32)."""
-    ins = (pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att)
-    if not _on_cuda(*ins):
-        return try_vel_plain(*ins, g)
+_COOP_BLOCKS = {}      # device index -> co-resident block limit of the solve's kernel
+
+
+def _launch_minimize_vel(name, pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att,
+                         g: TryVelGeom, iterations: int):
+    """Checks, allocates once and launches csrc/try_vel.cu's cooperative
+    kernel: 1 + ``iterations`` passes from ``residuals`` (None: zeros).
+    Returns (out [16 + 3*iterations], residuals [K], match_id_forward [K])."""
     K = rho.shape[0]
     N = att.shape[1]
-    for t, shape, name in ((pos_img, (K, 2), "pos_img"), (rho, (K,), "rho"),
+    for t, shape, what in ((pos_img, (K, 2), "pos_img"), (rho, (K,), "rho"),
                            (sigma_rho, (K,), "sigma_rho"), (grad, (K, 2), "grad"),
                            (use_f, (K,), "use_f"), (residuals, (K,), "residuals"),
                            (vel, (3,), "vel"), (att, (8, N), "att")):
-        _check(t, f32, shape, "try_vel " + name)
+        if t is not None:
+            _check(t, f32, shape, f"{name} {what}")
+    if iterations < 0 or K < 1:
+        raise ValueError(f"{name}: needs iterations >= 0 and at least one keyline")
     lib = _build.load()
     dev = rho.device
-    partials = torch.empty((lib.rk_try_vel_blocks(K), 11), dtype=f32, device=dev)
-    G = torch.empty((4, 4), dtype=f32, device=dev)
-    score = torch.empty((), dtype=f32, device=dev)
+    nblk = lib.rk_minimize_vel_blocks(K)
+    if dev.index not in _COOP_BLOCKS:
+        with torch.cuda.device(dev):
+            _COOP_BLOCKS[dev.index] = lib.rk_minimize_vel_max_blocks()
+    if _COOP_BLOCKS[dev.index] < 1:
+        raise RuntimeError(f"{name}: the occupancy query for the cooperative launch failed")
+    if nblk > _COOP_BLOCKS[dev.index]:
+        raise ValueError(f"{name}: {K} keylines need {nblk} blocks, but only "
+                         f"{_COOP_BLOCKS[dev.index]} can be co-resident for the grid sync")
+    n_out = 16 + 3 * iterations
+    buf = torch.empty((n_out + 2 * nblk * 11,), dtype=f32, device=dev)
     res = torch.empty((K,), dtype=f32, device=dev)
     mif = torch.empty((K,), dtype=i32, device=dev)
-    err = lib.rk_try_vel(*(_ptr(t) for t in ins), K, N, g.H, g.W, g.field_scale,
-                         g.fm, g.cx, g.cy, g.R, g.rw, g.mthr, _ptr(partials), _ptr(G),
-                         _ptr(score), _ptr(res), _ptr(mif), _stream(rho))
-    _raise_on(err, "try_vel")
-    LAUNCHES["try_vel"] += 1
-    return score, G[:3, :3], G[:3, 3], res, mif
+    err = lib.rk_minimize_vel(
+        _ptr(pos_img), _ptr(rho), _ptr(sigma_rho), _ptr(grad), _ptr(use_f),
+        _ptr(residuals) if residuals is not None else None, _ptr(vel), _ptr(att), K, N, g.H,
+        g.W, g.field_scale, g.fm, g.cx, g.cy, g.R, g.rw, g.mthr, iterations,
+        _ptr(buf[n_out:]), _ptr(buf), _ptr(res), _ptr(mif), _stream(rho))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return buf[:n_out], res, mif
+
+
+def try_vel(pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att, g: TryVelGeom):
+    """One tryVel pass (csrc/try_vel.cu: the solve's kernel with no LM
+    iteration).  Returns (score [], JtJ [3,3], JtF [3], residuals [K],
+    match_id_forward [K] int32)."""
+    ins = (pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att)
+    if not _on_cuda(*ins):
+        return try_vel_plain(*ins, g)
+    out, res, mif = _launch_minimize_vel("try_vel", *ins, g, 0)
+    return out[15], out[3:12].view(3, 3), out[12:15], res, mif
 
 
 def try_vel_plain(pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att, g: TryVelGeom):
@@ -405,6 +434,67 @@ def try_vel_plain(pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att, g: 
     res = torch.where(m, torch.abs(fi), residuals)
     mif = torch.where(m, fid, -1)
     return score, G[:3, :3], G[:3, 3], res, mif
+
+
+def minimize_vel(pos_img, rho, sigma_rho, grad, use_f, vel0, att, g: TryVelGeom,
+                 iterations: int, debug: bool = False):
+    """The Levenberg-Marquardt translation solve (core.cpp:150-189): 1 +
+    ``iterations`` tryVel passes from zero residuals with the LM update
+    between them, one cooperative launch of csrc/try_vel.cu.  Returns (vel
+    [3], JtJ [3,3], JtF [3], score [], residuals [K], match_id_forward [K]
+    int32); the last two are those of the LAST pass, accepted or not.  With
+    ``debug`` also (gains [iterations], accepts [iterations] bool, trial
+    scores [iterations]): each iteration's decision and what it rests on."""
+    ins = (pos_img, rho, sigma_rho, grad, use_f, vel0, att)
+    if not _on_cuda(*ins):
+        return minimize_vel_plain(*ins, g, iterations, debug)
+    out, res, mif = _launch_minimize_vel("minimize_vel", pos_img, rho, sigma_rho, grad, use_f,
+                                         None, vel0, att, g, int(iterations))
+    ret = (out[0:3], out[3:12].view(3, 3), out[12:15], out[15], res, mif)
+    if debug:
+        it = int(iterations)
+        ret += (out[16:16 + it], out[16 + it:16 + 2 * it] > 0.5, out[16 + 2 * it:])
+    return ret
+
+
+def minimize_vel_plain(pos_img, rho, sigma_rho, grad, use_f, vel0, att, g: TryVelGeom,
+                       iterations: int, debug: bool = False):
+    """tracker.minimize_vel's loop over ``try_vel_plain``: each accept
+    decision is a select, nothing is read back."""
+    from rebvio_tpu_torch.geometry import linalg
+
+    def pass_(vel, residuals):
+        return try_vel_plain(pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att, g)
+
+    F, JtJ, JtF, residuals, mif = pass_(vel0, torch.zeros_like(rho))
+    vel = vel0
+    u = 1e-3 * torch.max(JtJ)
+    v = torch.tensor(2.0, dtype=f32, device=vel.device)
+    eye = torch.eye(3, dtype=f32, device=vel.device)
+    gains, accepts, trials = [], [], []
+    for _ in range(iterations):
+        h = linalg.invert3(JtJ + eye * u) @ (-JtF)
+        vel_new = vel + h
+        score2, JtJ2, JtF2, residuals, mif = pass_(vel_new, residuals)
+        gain = (F - score2) / (0.5 * torch.dot(h, u * h - JtF))
+        accept = gain > 0.0
+        F = torch.where(accept, score2, F)
+        vel = torch.where(accept, vel_new, vel)
+        JtJ = torch.where(accept, JtJ2, JtJ)
+        JtF = torch.where(accept, JtF2, JtF)
+        t = 2.0 * gain - 1.0
+        u = torch.where(accept, u * torch.clamp(1.0 - t * t * t, min=0.33), u * v)
+        v = torch.where(accept, 2.0, v * 2.0)
+        gains.append(gain)
+        accepts.append(accept)
+        trials.append(score2)
+    ret = (vel, JtJ, JtF, F, residuals, mif)
+    if debug:
+        empty = torch.zeros(0, dtype=f32, device=vel.device)
+        ret += (torch.stack(gains) if gains else empty,
+                torch.stack(accepts) if accepts else empty > 0.5,
+                torch.stack(trials) if trials else empty)
+    return ret
 
 
 # --------------------------------------------------------------------------

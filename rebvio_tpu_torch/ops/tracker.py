@@ -1,7 +1,8 @@
 """Tracker core: the translation LM against the attribute field, the 6-DoF
 linear refinement and the per-keyline depth update (rebvio_tpu/ops/
-tracker.py; reference core.cpp).  Every tryVel pass is kernel K2
-(kernels.try_vel) and the depth stage is kernel K5 (kernels.reg_ekf)."""
+tracker.py; reference core.cpp).  The LM solve with all its tryVel passes is
+kernel K2 (kernels.minimize_vel; kernels.try_vel is its single pass) and the
+depth stage is kernel K5 (kernels.reg_ekf)."""
 
 from __future__ import annotations
 
@@ -50,8 +51,9 @@ def minimize_vel(old: T.EdgeMap, att: torch.Tensor, vel0: torch.Tensor, cfg: Cor
 
     Returns (vel, Rvel, old map with the forward matches, score).  The
     forward matches and residuals are those of the LAST pass, accepted or
-    not, as in the reference.  The loop runs on the device without host
-    round trips: each accept decision is a select."""
+    not, as in the reference.  The whole loop (1 + ``cfg.iterations`` tryVel
+    passes and the LM update between them) is one launch of kernel K2
+    (kernels.minimize_vel), without host round trips."""
     H, W = old.kl_id_img.shape
     geom = _try_vel_geom(H, W, field_scale, cfg, cam)
     sigma_rho_min = estimate_quantile(old, cfg.quantile_cutoff, cfg.quantile_num_bins)
@@ -60,29 +62,9 @@ def minimize_vel(old: T.EdgeMap, att: torch.Tensor, vel0: torch.Tensor, cfg: Cor
     grad = old.grad.contiguous()
     att = att.contiguous()
 
-    def pass_(vel, residuals):
-        return kernels.try_vel(pos_img, old.rho, old.sigma_rho, grad, use_f, residuals,
-                               vel, att, geom)
-
-    residuals = torch.zeros((old.kmax,), dtype=f32, device=old.rho.device)
-    F, JtJ, JtF, residuals, mif = pass_(vel0, residuals)
-    vel = vel0
-    u = 1e-3 * torch.max(JtJ)
-    v = torch.tensor(2.0, dtype=f32, device=vel.device)
-    eye = torch.eye(3, dtype=f32, device=vel.device)
-    for _ in range(cfg.iterations):
-        h = linalg.invert3(JtJ + eye * u) @ (-JtF)
-        vel_new = vel + h
-        score2, JtJ2, JtF2, residuals, mif = pass_(vel_new, residuals)
-        gain = (F - score2) / (0.5 * torch.dot(h, u * h - JtF))
-        accept = gain > 0.0
-        F = torch.where(accept, score2, F)
-        vel = torch.where(accept, vel_new, vel)
-        JtJ = torch.where(accept, JtJ2, JtJ)
-        JtF = torch.where(accept, JtF2, JtF)
-        t = 2.0 * gain - 1.0
-        u = torch.where(accept, u * torch.clamp(1.0 - t * t * t, min=0.33), u * v)
-        v = torch.where(accept, 2.0, v * 2.0)
+    vel, JtJ, _JtF, F, _residuals, mif = kernels.minimize_vel(
+        pos_img, old.rho, old.sigma_rho, grad, use_f, vel0.contiguous(), att, geom,
+        cfg.iterations)
     Rvel = linalg.invert3(JtJ)
     return vel, Rvel, old.replace(match_id_forward=mif), F
 

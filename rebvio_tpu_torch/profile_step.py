@@ -11,7 +11,8 @@ same number again under ``torch.cuda.set_sync_debug_mode`` to count the
 host syncs.  Prints one JSON line: the wall time per frame, the device's
 busy and idle share of that wall time (union of the kernel intervals), the
 device time per frame of each kernel name (top 12), the ported kernels'
-device time and share, and the host syncs per frame.  Needs a GPU.
+device time, launches and share, and the host syncs per frame with the source
+line of each.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -30,10 +31,11 @@ from rebvio_tpu_torch.runner import VioRunner
 
 # kernel names (substrings of the device symbols) of the ported kernels
 PORTED = {"att_flood": ("flood_step", "flood_finish"),
-          "try_vel": ("try_vel_pass", "try_vel_sum"),
+          "minimize_vel": ("minimize_vel_kernel",),
           "tube_match": ("tube_match",),
           "reg_ekf": ("reg_ekf",),
-          "estimate_bias": ("estimate_bias_kernel",)}
+          "estimate_bias": ("estimate_bias_kernel",),
+          "chol_inverse": ("chol_inverse_kernel",)}
 
 
 def _union_us(intervals):
@@ -89,18 +91,26 @@ def main(argv=None) -> dict:
                 frame(i)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    sync_sites = defaultdict(int)        # source line of each synchronizing call
+    for w in syncs:
+        sync_sites[f"{w.filename.split('rebvio_tpu_torch/')[-1]}:{w.lineno}"] += 1
 
     by_name = defaultdict(float)
+    count_by_name = defaultdict(int)
     intervals = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
+            count_by_name[e.name] += 1
             intervals.append((e.time_range.start, e.time_range.end))
     busy_us = _union_us(intervals)
     dev_total = sum(by_name.values())
     ported = {k: sum(v for name, v in by_name.items() if any(s in name for s in subs))
               / args.frames / 1e3 for k, subs in PORTED.items()}
+    ported_launches = {k: sum(c for name, c in count_by_name.items()
+                              if any(s in name for s in subs)) / args.frames
+                       for k, subs in PORTED.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out = {
         "slice": "vio" if args.vio else "vo",
@@ -112,10 +122,13 @@ def main(argv=None) -> dict:
         "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None,
         "kernel_launches_per_frame": len(intervals) / args.frames,
         "ported_kernels_ms_per_frame": ported,
+        "ported_kernels_launches_per_frame": ported_launches,
         "ported_share_of_device_time": sum(ported.values()) * args.frames * 1e3 / dev_total
         if dev_total else None,
         "top_kernels_ms_per_frame": [[name[:80], us / args.frames / 1e3] for name, us in top],
         "host_syncs_per_frame": len(syncs) / args.frames,
+        "host_syncs_per_frame_by_site": {k: v / args.frames
+                                         for k, v in sorted(sync_sites.items())},
     }
     line = json.dumps(out)
     print(line, flush=True)

@@ -1,0 +1,129 @@
+"""Times the step's three small solves on the GPU at the EuRoC parity profile
+(752x480, 16000 keylines): the translation LM solve
+(``tracker.minimize_vel``, kernel K2: every tryVel pass and the update
+between them), the SAB solve (``kernels.estimate_bias``, kernel K3) and the
+7x7 Cholesky inverse (``linalg.chol_inverse``), on inputs taken from the
+paths (the first frame pair of the seed-0 synthetic sequence; the first VIO
+frame with the SAB filter engaged).
+
+    python -m rebvio_tpu_torch.tools.solve_ab [--out FILE]
+
+Prints one JSON line.  Per function: microseconds per call between two CUDA
+events over a run of calls (device time plus launch gaps and whatever host
+work the device waits for), the host's wall time per call of that run, the
+device time per call (all device activities under ``torch.profiler``,
+summed), the device activities per call, and the host syncs per call under
+``torch.cuda.set_sync_debug_mode``.  It uses only entry points that every
+revision of the port since the VIO slice has, so two checkouts can be timed
+on the same card one after the other: copy this file into the other
+checkout's ``tools/`` and run it there.  Needs a GPU; the card's name and
+power limit are in the line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import warnings
+
+import torch
+
+from rebvio_tpu_torch.configs import CameraConfig, PipelineConfig
+from rebvio_tpu_torch.data import synthetic
+from rebvio_tpu_torch.geometry import linalg
+from rebvio_tpu_torch.ops import kernels, tracker
+from rebvio_tpu_torch.runner import VioRunner
+from rebvio_tpu_torch.tools.jfa_ab import time_us
+
+CALLS = 200
+PROFILED = 20
+
+
+def device_profile(fn, calls: int = PROFILED):
+    """(device microseconds, device activities) per call under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(ev) / calls, len(ev) / calls
+
+
+def host_syncs(fn, calls: int = 4) -> float:
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(calls):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught) / calls
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("solve_ab needs a GPU (torch.cuda.is_available() is False)")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True)
+
+    vcfg = PipelineConfig()
+    engaged = 4 + vcfg.imu.init_bias_frame_num + 2       # first frame with SAB engaged
+    seq = synthetic.generate(CameraConfig(), n_frames=engaged, seed=0, distort=True,
+                             imu_preroll_s=0.1)
+    solves, sab_args, chol_args = [], [], []
+    plain = (tracker.minimize_vel, kernels.estimate_bias, linalg.chol_inverse)
+
+    def rec_solve(old, att, vel0, *rest, **kw):
+        solves.append((old, att, vel0.clone(), rest, kw))
+        return plain[0](old, att, vel0, *rest, **kw)
+
+    def rec_sab(*a):
+        sab_args.append(tuple(t.clone() if torch.is_tensor(t) else t for t in a))
+        return plain[1](*a)
+
+    def rec_chol(m):
+        chol_args.append(m.clone())
+        return plain[2](m)
+
+    tracker.minimize_vel, kernels.estimate_bias, linalg.chol_inverse = rec_solve, rec_sab, rec_chol
+    try:
+        runner = VioRunner(vcfg, undistort=True, device="cuda")
+        for i in range(engaged):
+            runner.process_frame(seq.images[i], int(seq.ts_us[i]), seq.imu_ts_us, seq.imu_gyro,
+                                 seq.imu_acc)
+    finally:
+        tracker.minimize_vel, kernels.estimate_bias, linalg.chol_inverse = plain
+    old, att, vel0, rest, kw = solves[-1]
+    m7 = [m for m in chol_args if m.shape[-1] == 7][-1]
+    fns = {
+        "minimize_vel (LM solve, K2)": lambda: tracker.minimize_vel(old, att, vel0, *rest, **kw),
+        "estimate_bias (SAB solve, K3)": lambda: kernels.estimate_bias(*sab_args[-1]),
+        "chol_inverse 7x7": lambda: linalg.chol_inverse(m7),
+    }
+    out = {"card": card.stdout.strip().splitlines()[0] if card.returncode == 0 else "unknown",
+           "device": torch.cuda.get_device_name(0), "keylines": int(old.rho.shape[0]),
+           "lm_iterations": vcfg.core.iterations, "sab_iterations": vcfg.imu.sab_iterations,
+           "calls": CALLS, "us_per_call": {}}
+    for name, fn in fns.items():
+        ev_us, wall_us = time_us(fn, CALLS)
+        dev_us, dev_ops = device_profile(fn)
+        out["us_per_call"][name] = {"between_events": ev_us, "host": wall_us, "device": dev_us,
+                                    "device_activities": dev_ops, "host_syncs": host_syncs(fn)}
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return out
+
+
+if __name__ == "__main__":
+    main()
