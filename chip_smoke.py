@@ -13,6 +13,7 @@ Phases (any failure exits non-zero):
      minimize_vel, tube_match, reg_ekf, estimate_bias, att_field, nn_field)
      against its plain PyTorch version on the card, on inputs taken from the
      paths at their shapes (a VO frame pair and its post-step map;
+     att_flood also at search ranges 5 and 40 and tube_match at 4 probes;
      estimate_bias at the first frame the SAB filter is engaged; the fused LM
      solve minimize_vel with every iteration's gain and accept flag, launched
      twice for bit-identity) plus seeded random cases
@@ -21,10 +22,14 @@ Phases (any failure exits non-zero):
      time, the plain version's time and its bound; the seeding's winner
      plane against the plain scatter-max; and the scatter-seeded field
      (att_field) against the dense-seeded one (att_flood) on the detector's
-     own map; the Cholesky inverse (csrc/chol_inverse.cu, no TPU kernel behind
-     it) on the three matrices a VIO frame inverts and on one that is not
-     positive definite; then the single-pass entry point tracker.try_vel
-     driven over the frame pair with the counters set to 0 before it;
+     own map; frame 1's seed_stack_dense -> att_flood -> tube_match under
+     torch.cuda.set_sync_debug_mode("error") (no host sync allowed); the
+     Cholesky inverse (csrc/chol_inverse.cu, no TPU kernel behind it) on the
+     three matrices a VIO frame inverts and on one that is not positive
+     definite; then the single-pass entry point tracker.try_vel driven over
+     the frame pair with the counters set to 0 before it.  att_flood,
+     att_field and tube_match must equal their plain versions bit for bit
+     on every plane;
   3. VO slice: VioRunner(undistort=False) over 24 synthetic frames, with the
      launch counters set to 0 just before and read just after, the
      trajectory held against the committed JAX golden
@@ -111,11 +116,12 @@ REPLACES = {
     "att_field": "rebvio_tpu/ops/pallas_kernels.py:120",
     "nn_field": "rebvio_tpu/ops/pallas_kernels.py:48",
 }
-# outputs (index -> planes; None = the whole output) that hold ids and must
-# match the plain version exactly
-EXACT = {"att_flood": {0: (2,)}, "try_vel": {4: (None,)}, "minimize_vel": {5: (None,)},
-         "tube_match": {0: (0, 1)},
-         "reg_ekf": {}, "estimate_bias": {}, "att_field": {0: (2,)}, "nn_field": {0: (None,)}}
+# outputs (index -> planes; None = the whole output) that must equal the
+# plain version bit for bit: the ids, and every plane of the two fields and
+# of the tube matcher (their kernels repeat the plain arithmetic op for op)
+EXACT = {"att_flood": {0: (None,)}, "try_vel": {4: (None,)}, "minimize_vel": {5: (None,)},
+         "tube_match": {0: (None,)},
+         "reg_ekf": {}, "estimate_bias": {}, "att_field": {0: (None,)}, "nn_field": {0: (None,)}}
 SOURCES = {
     "att_flood": "rebvio_tpu_torch/csrc/flood.cu",
     "try_vel": "rebvio_tpu_torch/csrc/try_vel.cu",
@@ -332,6 +338,7 @@ def main() -> int:
     from rebvio_tpu_torch.configs import CameraConfig, PipelineConfig
     from rebvio_tpu_torch.data import synthetic
     from rebvio_tpu_torch.ops import _build, kernels
+    from rebvio_tpu_torch.ops import distance_field as DF
     from rebvio_tpu_torch.ba import loop_closure as lc
     from rebvio_tpu_torch.ba import pose_graph as pgm
     from rebvio_tpu_torch.ba.keyframe_map import KeyframeMapBuilder
@@ -366,7 +373,9 @@ def main() -> int:
     step_names = ["att_flood", "minimize_vel", "tube_match", "reg_ekf", "estimate_bias"]
     originals = {name: getattr(kernels, name) for name in step_names}
     solve_maps, chol_inputs = [], []     # (old map, field) of each LM solve; chol_inverse's inputs
+    seed_calls = []                      # distance_field.seed_stack_dense's inputs, one a frame
     plain_solve, plain_chol = tracker.minimize_vel, linalg.chol_inverse
+    plain_seed = DF.seed_stack_dense
 
     def recording_solve(old, att, *rest, **kw):
         solve_maps.append((old, att))
@@ -375,6 +384,10 @@ def main() -> int:
     def recording_chol(m):
         chol_inputs.append(m.clone())
         return plain_chol(m)
+
+    def recording_seed(*args):
+        seed_calls.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return plain_seed(*args)
 
     def recorder(name):
         def call(*args):
@@ -387,6 +400,7 @@ def main() -> int:
         for name in names:
             setattr(kernels, name, recorder(name))
         tracker.minimize_vel, linalg.chol_inverse = recording_solve, recording_chol
+        DF.seed_stack_dense = recording_seed
         try:
             r = VioRunner(run_cfg, undistort=undistort, device="cuda")
             r.run(prefix(sq, n))
@@ -394,6 +408,7 @@ def main() -> int:
             for name in names:
                 setattr(kernels, name, originals[name])
             tracker.minimize_vel, linalg.chol_inverse = plain_solve, plain_chol
+            DF.seed_stack_dense = plain_seed
         return r
 
     vo_names = [n for n in step_names if n != "estimate_bias"]
@@ -421,20 +436,27 @@ def main() -> int:
     def on_dev(a):
         return torch.as_tensor(a).to(dev)
 
-    # seeded random cases at the same shapes
+    # seeded random cases at the same shapes; the flood also at search range
+    # 5 (no full-grid step) and 40 (three: 32, 16, 8) on the same field, with
+    # sparse seeds (cells far from every seed keep or spread the sentinels;
+    # their own generator leaves the other kernels' random cases as they were)
     st, sr, rows, cols, scale = captured["att_flood"][0]
-    pad = st.shape[0] // 5 - rows
-    rs = np.zeros((5, rows + pad, cols), np.float32)
-    rs[0] = rs[1] = 1e9
-    rs[2] = -1.0
-    ys, xs = np.nonzero(rng.rand(rows, cols) < 0.05)
-    rs[0, ys, xs] = ys + rng.uniform(-0.5, 0.5, len(ys))
-    rs[1, ys, xs] = xs + rng.uniform(-0.5, 0.5, len(xs))
-    rs[2, ys, xs] = rng.permutation(len(ys))
-    rs[3, ys, xs] = rng.normal(0, 100, len(ys))
-    rs[4, ys, xs] = rng.normal(0, 100, len(ys))
-    cases["att_flood"].append(("random seeds", (on_dev(rs.reshape(st.shape)), sr, rows, cols,
-                                                scale)))
+    frng = np.random.RandomState(1)
+    for label, f_sr, density, gen in (("random seeds", sr, 0.05, rng),
+                                      ("random seeds, range 5", 5, 0.01, frng),
+                                      ("random seeds, range 40", 40, 0.001, frng)):
+        pad = kernels.flood_layout(rows, f_sr)[0]
+        rs = np.zeros((5, rows + pad, cols), np.float32)
+        rs[0] = rs[1] = 1e9
+        rs[2] = -1.0
+        ys, xs = np.nonzero(gen.rand(rows, cols) < density)
+        rs[0, ys, xs] = ys + gen.uniform(-0.5, 0.5, len(ys))
+        rs[1, ys, xs] = xs + gen.uniform(-0.5, 0.5, len(xs))
+        rs[2, ys, xs] = gen.permutation(len(ys))
+        rs[3, ys, xs] = gen.normal(0, 100, len(ys))
+        rs[4, ys, xs] = gen.normal(0, 100, len(ys))
+        cases["att_flood"].append((label, (on_dev(rs.reshape(-1, cols)), f_sr, rows, cols,
+                                           scale)))
     a = list(cases["try_vel"][0][1])
     K = a[1].shape[0]
     a[5] = on_dev(rng.uniform(0, 6, K).astype(np.float32))        # residuals
@@ -450,6 +472,9 @@ def main() -> int:
     dyn[0] = on_dev(rng.uniform(0.05, 3.0, K).astype(np.float32))
     a[2] = dyn
     cases["tube_match"].append(("random rotation/depths", tuple(a)))
+    a = list(captured["tube_match"][0])
+    a[4] = a[4]._replace(P=4)
+    cases["tube_match"].append(("frame 1, 4 probes", tuple(a)))
     a = list(captured["reg_ekf"][0])
     a[0] = on_dev(rng.uniform(0.05, 3.0, K).astype(np.float32))     # rho
     a[12] = on_dev(rng.normal(0, 0.02, 3).astype(np.float32))      # vel
@@ -461,8 +486,6 @@ def main() -> int:
     # seeded random tables of the same size: positions over the image and a
     # margin outside it, the second half of the table sitting on the cells of
     # the first half (collisions at every scale), a tenth of it gated out
-    from rebvio_tpu_torch.ops import distance_field as DF
-
     H, W, fs = vcfg.camera.rows, vcfg.camera.cols, vcfg.field_scale
     sr_img = int(vcfg.core.search_range)
     frows, fcols, fsr = DF.field_geometry(sr_img, H, W, fs)
@@ -537,7 +560,7 @@ def main() -> int:
                     gp, rp = (g, r) if plane is None else (g[plane], r[plane])
                     key = f"{label}: out{i}" + ("" if plane is None else f"[{plane}]")
                     exact[key] = [int((gp == rp).sum()), int(gp.numel())]
-                    if not torch.equal(gp, rp):
+                    if not bits_equal(torch, gp, rp):
                         return fail(f"{name}: {key} differs in {int((gp != rp).sum())} "
                                     f"of {gp.numel()} entries")
                 if g.dtype == torch.float32:
@@ -560,6 +583,29 @@ def main() -> int:
         plain_ms = median_ms(torch, lambda: plain[name](*args))
         report[name] = dict(max_abs_err=worst_abs, max_rel_err=worst_rel, tol_rel=tol,
                             exact=exact, ms=kern_ms, plain_ms=plain_ms)
+
+    # frame 1's field seeding, flood and tube match under the sync debug mode
+    # "error": a host sync in any of them raises.  The stack and the field
+    # must equal the ones the VO slice built from the same inputs
+    seed_args, flood_args = seed_calls[1], captured["att_flood"][1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stack_ns = DF.seed_stack_dense(*seed_args)
+        att_ns = kernels.att_flood(stack_ns, *flood_args[1:])
+        tm_ns = kernels.tube_match(*captured["tube_match"][0])
+    except RuntimeError as e:
+        return fail(f"seed_stack_dense -> att_flood -> tube_match synced the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    same = dict(stack=bits_equal(torch, stack_ns, flood_args[0]),
+                field=bits_equal(torch, att_ns, kernels.att_flood(*flood_args)),
+                tube=bits_equal(torch, tm_ns, kernels.tube_match(*captured["tube_match"][0])))
+    print(json.dumps({"check": "no host sync: seed_stack_dense -> att_flood -> tube_match, "
+                               "frame 1, set_sync_debug_mode('error')", "bit_identical": same}))
+    if not all(same.values()):
+        return fail(f"the no-sync run differs from the slice's: {same}")
 
     # the fused LM solve: every accept flag, then the values (MV_TOL)
     worst_abs = 0.0

@@ -1,34 +1,87 @@
-// K1: jump flood of the nearest-keyline attribute field.
+// K1: jump flood of the nearest-keyline attribute field, one cooperative
+// launch.
 //
 // Replaces rebvio_tpu/ops/pallas_kernels.py::_att_flood (the flood over the
-// row-stacked seed regions built by distance_field.seed_stack_dense).
+// row-stacked seed regions built by distance_field.seed_stack_dense) and is
+// also K1b's flood (att_field_pallas: csrc/seed_scatter.cu seeds the stack).
 //
 // Bound on the H100: bytes.  At the parity geometry (field 240x376, field
 // search range 20 -> steps 16, 8, 4, 2, 1, 1) the least traffic is one
 // read of the [5*(rows+PAD), cols] f32 seed stack (1.9 MB) and one write
-// of the [8, rows*cols] f32 field (2.9 MB): ~1.4 us at 3.35 TB/s, below
-// the launch latency of the 6 step kernels + 1 finishing kernel this
-// design issues (and their 6 full passes over the stack).
+// of the [8, rows*cols] f32 field (2.9 MB): ~1.4 us at 3.35 TB/s.  The
+// first port issued two stack copies and seven launches (one per step and
+// a finishing pass), each a full pass over the 5-plane stack: launch gaps
+// and stack traffic, 25x the bound.
 //
-// Design: one thread per field cell, one launch per jump step, ping-pong
-// between two copies of the stack in device memory (both start as the seed
-// stack, so the sentinel pad rows never need writing).  Each step reads the
-// 8 candidates from the input copy and writes the winner's five region
-// values to the output copy.  The semantics are _att_flood's exactly:
-//   * candidate (dy, dx) reads cell (y - dy, x - dx) of the WHOLE stack
-//     (pltpu.roll == jnp.roll): rows wrap modulo 5*(rows+PAD), so a data
-//     row near the top of a region reads the previous region's pad rows;
-//     columns wrap modulo cols;
-//   * candidates in the order dy outer, dx inner over (-s, 0, s), (0,0)
-//     skipped, accepted only if strictly closer than the running best,
-//     which starts at the cell's own d2;
-//   * d2 = (y - sy)^2 + (x - sx)^2 in f32 with round-to-nearest intrinsics
-//     and no FMA contraction, so ties resolve as in the reference.
-// The last kernel writes the 8 output planes with the in-range mask.
+// Semantics (_att_flood's, exactly): candidate (dy, dx) of cell (y, x)
+// reads cell (y - dy, x - dx) of the WHOLE stack (pltpu.roll == jnp.roll),
+// rows modulo 5*(rows+PAD), columns modulo cols; candidates in the order dy
+// outer, dx inner over (-s, 0, s), (0, 0) skipped, accepted only if strictly
+// closer than the running best, which starts at the cell's own d2; d2 in
+// f32 with round-to-nearest intrinsics and no FMA contraction (the build's
+// --fmad=false), so ties resolve as in the reference.  Pad rows are never
+// written, and PAD >= every step, so a candidate row outside [0, rows) is a
+// pad row of the INPUT stack: below the data the region's own sentinels,
+// above it the previous region's (plane 0 wraps to plane 4's pad), which
+// gives the rotated sentinel (0, BIG, BIG, -1, 0).  Both are read from the
+// stack itself, so the flood stays exact whatever the pad rows hold.
+//
+// Design: one cooperative launch (blocks capped at the co-resident limit).
+//   * State: per cell (sy, sx) as one float2 and src, the int32 index of the
+//     cell of the virtual grid [-PAD, rows + PAD) x cols its values came
+//     from.  The five values always move together, so the finish gathers
+//     id, gx, gy from the input stack at src: 12 bytes a cell move instead
+//     of 20, and the stack is only read.  No copies; no pad rows in the state.
+//   * Long steps (those before the tile schedule, 16 and 8 at the parity
+//     field): full-grid passes over the L2-resident state, ping-pong between
+//     two buffers read past L1, a grid sync after each; a cell's nine loads
+//     are issued before its comparisons; grid-stride over the cells.
+//   * Short steps (the tail whose sum, the halo, is at most kHaloMax: 4, 2,
+//     1, 1): each block loads a 16x16 tile plus the halo into shared memory
+//     once and runs them there with overlapped tiling: step s updates the
+//     tile grown by the sum of the steps after it, whose candidates lie
+//     within s of it and are already final for that step.  Halo rows follow
+//     the rule above, columns wrap.  The steps ping-pong between two shared
+//     buffers, one barrier each; a step's cells are spread over the threads
+//     in raster order, and the winner is kept as its shared-memory offset,
+//     whose values are copied once.  The block then writes the eight output
+//     planes of its tile; grid-stride over tiles.  16x16 and not 32x32
+//     tiles: the steps are bound by instruction issue, and 32x32 tiles at
+//     the parity field leave 96 blocks of 8 warps to run them.
+// The wrapper (ops/kernels.py::flood_schedule) computes the split and
+// passes the steps; any search range runs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 16;
+constexpr int kHaloMax = 8;                       // ops/kernels.py FLOOD_HALO_MAX
+constexpr int kSide = kTile + 2 * kHaloMax;       // 32
+constexpr int kTx = 32, kTy = kThreads / kTx;     // the tile load's 32 x 8 threads
+constexpr int kRowsPer = (kSide + kTy - 1) / kTy; // 4
+static_assert(kSide <= kTx, "a tile row with its halo is loaded by one warp");
+constexpr int kMaxSteps = 32;
+constexpr float kBig = 1e9f;
+
+struct Geom {
+  int rows, cols, pad, Rp, SR, n, tiles_x, ntiles;
+  float r2, scale;
+};
+
+struct Schedule {
+  int n_global, n_tile, halo;
+  int steps[kMaxSteps];
+};
+
+struct State {
+  float2* xy;    // (sy, sx)
+  int* src;
+};
 
 __device__ __forceinline__ int wrap(int v, int n) {
   int r = v % n;
@@ -41,91 +94,234 @@ __device__ __forceinline__ float dist2(float y, float x, float sy, float sx) {
   return __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b));
 }
 
-__global__ void flood_step(const float* __restrict__ in, float* __restrict__ out,
-                           int rows, int cols, int Rp, int s) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y;
-  if (x >= cols || y >= rows) return;
-  const int SR = 5 * Rp;
-  const float yf = (float)y, xf = (float)x;
-  float best = dist2(yf, xf, in[y * cols + x], in[(Rp + y) * cols + x]);
-  int by = 0, bx = 0;
-  bool found = false;
-  for (int iy = -1; iy <= 1; ++iy) {
-    const int dy = iy * s;
-    for (int ix = -1; ix <= 1; ++ix) {
-      const int dx = ix * s;
-      if (dy == 0 && dx == 0) continue;
-      const int c = wrap(x - dx, cols);
-      const float csy = in[wrap(y - dy, SR) * cols + c];
-      const float csx = in[wrap(Rp + y - dy, SR) * cols + c];
-      const float cd2 = dist2(yf, xf, csy, csx);
+// (sy, sx) at virtual row yv, column c of the input stack (yv in
+// [-PAD, rows + PAD): rows above 0 wrap to the stack's end for plane 0)
+__device__ __forceinline__ float2 stack_xy(const float* st, const Geom& g, int yv, int c) {
+  const int r0 = yv < 0 ? yv + g.SR : yv;
+  return make_float2(__ldcg(st + (size_t)r0 * g.cols + c),
+                     __ldcg(st + (size_t)(g.Rp + yv) * g.cols + c));
+}
+
+__device__ __forceinline__ float stack_at(const float* st, const Geom& g, int r, int yv, int c) {
+  int row = r * g.Rp + yv;
+  if (row < 0) row += g.SR;
+  return __ldg(&st[(size_t)row * g.cols + c]);
+}
+
+__device__ __forceinline__ int encode(const Geom& g, int yv, int c) {
+  return (yv + g.pad) * g.cols + c;
+}
+
+// One long step over every cell: reads `in` (or the stack on the first
+// step), writes `out`; the nine loads of a cell are issued before its
+// comparisons.
+__device__ void global_pass(const float* __restrict__ stack, State in, bool from_stack,
+                            State out, const Geom& g, int s) {
+  const int sm = s % g.cols;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < g.n; i += gridDim.x * blockDim.x) {
+    const int y = i / g.cols, x = i - (i / g.cols) * g.cols;
+    const float yf = (float)y, xf = (float)x;
+    int cm = x + sm;
+    if (cm >= g.cols) cm -= g.cols;
+    int cp = x - sm;
+    if (cp < 0) cp += g.cols;
+    const int cc[3] = {cm, x, cp};                 // columns of dx = -s, 0, s
+    float2 cand[9];
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {
+      const int yv = y - (q / 3 - 1) * s, c = cc[q % 3];
+      cand[q] = (from_stack || yv < 0 || yv >= g.rows) ? stack_xy(stack, g, yv, c)
+                                                        : __ldcg(in.xy + yv * g.cols + c);
+    }
+    float2 b = cand[4];
+    float best = dist2(yf, xf, b.x, b.y);
+    int wq = 4;
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {
+      if (q == 4) continue;
+      const float cd2 = dist2(yf, xf, cand[q].x, cand[q].y);
       if (cd2 < best) {
         best = cd2;
-        by = dy;
-        bx = dx;
-        found = true;
+        b = cand[q];
+        wq = q;
       }
     }
-  }
-  const int c = found ? wrap(x - bx, cols) : x;
-  for (int r = 0; r < 5; ++r) {
-    const int src = found ? wrap(r * Rp + y - by, SR) : r * Rp + y;
-    out[(r * Rp + y) * cols + x] = in[src * cols + c];
+    const int wy = y - (wq / 3 - 1) * s;
+    const int wc = wq % 3 == 0 ? cm : (wq % 3 == 1 ? x : cp);
+    const int src = (from_stack || wy < 0 || wy >= g.rows) ? encode(g, wy, wc)
+                                                          : __ldcg(in.src + wy * g.cols + wc);
+    __stcg(out.xy + i, b);
+    __stcg(out.src + i, src);
   }
 }
 
-__global__ void flood_finish(const float* __restrict__ st, float* __restrict__ out,
-                             int rows, int cols, int Rp, float r2, float scale) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y;
-  if (x >= cols || y >= rows) return;
-  const int n = rows * cols;
-  const int i = y * cols + x;
-  const float sy = st[y * cols + x];
-  const float sx = st[(Rp + y) * cols + x];
-  const float id = st[(2 * Rp + y) * cols + x];
-  const float gx = st[(3 * Rp + y) * cols + x];
-  const float gy = st[(4 * Rp + y) * cols + x];
-  const float d2 = dist2((float)y, (float)x, sy, sx);
+// The eight output planes of cell (y, x) from its final state.
+__device__ __forceinline__ void finish(const float* __restrict__ stack, const Geom& g,
+                                       float* __restrict__ out, int y, int x, float2 xy,
+                                       int src) {
+  const int yv = src / g.cols - g.pad, c = src - (src / g.cols) * g.cols;
+  const float id = stack_at(stack, g, 2, yv, c);
+  const float gx = stack_at(stack, g, 3, yv, c);
+  const float gy = stack_at(stack, g, 4, yv, c);
+  const float d2 = dist2((float)y, (float)x, xy.x, xy.y);
+  const int n = g.n, i = y * g.cols + x;
   out[i] = 0.0f;
   out[n + i] = d2;
-  out[2 * n + i] = (d2 <= r2) ? id : -1.0f;
+  out[2 * n + i] = (d2 <= g.r2) ? id : -1.0f;
   out[3 * n + i] = gx;
   out[4 * n + i] = gy;
   out[5 * n + i] = __fsqrt_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)));
-  out[6 * n + i] = __fmul_rn(sx, scale);
-  out[7 * n + i] = __fmul_rn(sy, scale);
+  out[6 * n + i] = __fmul_rn(xy.y, g.scale);
+  out[7 * n + i] = __fmul_rn(xy.x, g.scale);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    att_flood_kernel(const float* __restrict__ stack, float* buf, float* __restrict__ out,
+                     Geom g, Schedule sc) {
+  __shared__ float2 s_xy[2][kSide * kSide];
+  __shared__ int s_src[2][kSide * kSide];
+  const int n = g.n;
+  // buf: (sy, sx) of both buffers first (8-byte aligned), then both src planes
+  float2* xy = reinterpret_cast<float2*>(buf);
+  int* srcs = reinterpret_cast<int*>(buf + 4 * n);
+  const State s0{xy, srcs}, s1{xy + n, srcs + n};
+
+  // ---- long steps: pass k writes s0 (k even) or s1 (k odd) from the other
+  if (sc.n_global > 0) {
+    cg::grid_group grid = cg::this_grid();
+    for (int k = 0; k < sc.n_global; ++k) {
+      global_pass(stack, (k & 1) ? s0 : s1, k == 0, (k & 1) ? s1 : s0, g, sc.steps[k]);
+      grid.sync();
+    }
+  }
+  const bool from_stack = sc.n_global == 0;
+  const State in = (sc.n_global & 1) ? s0 : s1;
+
+  // ---- short steps on tiles in shared memory (ping-pong), then the planes
+  const int H = sc.halo;
+  const int side = kTile + 2 * H;
+  const int tx = threadIdx.x % kTx, ty = threadIdx.x / kTx;
+  for (int t = blockIdx.x; t < g.ntiles; t += gridDim.x) {
+    const int y0 = (t / g.tiles_x) * kTile, x0 = (t - (t / g.tiles_x) * g.tiles_x) * kTile;
+    if (tx < side) {
+      const int c = wrap(x0 - H + tx, g.cols);
+#pragma unroll
+      for (int r = 0; r < kRowsPer; ++r) {
+        const int i = ty + r * kTy;
+        if (i < side) {
+          const int yv = y0 - H + i;
+          float2 v;
+          int src;
+          if (!from_stack && yv >= 0 && yv < g.rows) {
+            v = __ldcg(in.xy + yv * g.cols + c);
+            src = __ldcg(in.src + yv * g.cols + c);
+          } else if (yv >= -g.pad && yv < g.rows + g.pad) {
+            v = stack_xy(stack, g, yv, c);
+            src = encode(g, yv, c);
+          } else {  // below the last tile's pad: read only by cells that are never updated
+            v = make_float2(kBig, kBig);
+            src = -1;
+          }
+          s_xy[0][i * kSide + tx] = v;
+          s_src[0][i * kSide + tx] = src;
+        }
+      }
+    }
+    __syncthreads();
+    int m = H, cur = 0;
+    for (int k = 0; k < sc.n_tile; ++k) {
+      const int s = sc.steps[sc.n_global + k];
+      m -= s;                                   // this step updates the tile grown by m
+      const int lo = H - m, ext = kTile + 2 * m;
+      const float2* rxy = s_xy[cur];
+      const int* rsrc = s_src[cur];
+      // the region's ext x ext cells in raster order over the block's
+      // threads; row = floor((e + 0.5) / ext) is exact in float (e < 2^10)
+      const float inv_ext = 1.0f / (float)ext;
+      for (int e = threadIdx.x; e < ext * ext; e += kThreads) {
+        const int ri = __float2int_rz(((float)e + 0.5f) * inv_ext);
+        const int i = lo + ri, j = lo + e - ri * ext;
+        const int o = i * kSide + j;
+        const int yv = y0 - H + i;
+        int wo = o;
+        if (yv >= 0 && yv < g.rows) {
+          const float yf = (float)yv, xf = (float)wrap(x0 - H + j, g.cols);
+          const float2 own = rxy[o];
+          float best = dist2(yf, xf, own.x, own.y);
+#pragma unroll
+          for (int iy = -1; iy <= 1; ++iy) {
+#pragma unroll
+            for (int ix = -1; ix <= 1; ++ix) {
+              if (iy == 0 && ix == 0) continue;
+              const int co = o - iy * s * kSide - ix * s;
+              const float2 cv = rxy[co];
+              const float cd2 = dist2(yf, xf, cv.x, cv.y);
+              if (cd2 < best) {
+                best = cd2;
+                wo = co;
+              }
+            }
+          }
+        }
+        s_xy[cur ^ 1][o] = rxy[wo];
+        s_src[cur ^ 1][o] = rsrc[wo];
+      }
+      cur ^= 1;
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
+      const int i = e / kTile, j = e - (e / kTile) * kTile;
+      const int y = y0 + i, x = x0 + j;
+      if (y < g.rows && x < g.cols) {
+        const int o = (H + i) * kSide + H + j;
+        finish(stack, g, out, y, x, s_xy[cur][o], s_src[cur][o]);
+      }
+    }
+    __syncthreads();                            // before the next tile's load
+  }
 }
 
 }  // namespace
 
-extern "C" int rk_att_flood(const float* stack, float* buf_a, float* buf_b, float* out,
-                            int rows, int cols, int pad, int search_range, float scale,
+// The most blocks of the flood that can be co-resident on the current
+// device (the cooperative launch's limit), -1 if the query fails.
+extern "C" int rk_att_flood_max_blocks() {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, att_flood_kernel, kThreads, 0) !=
+      cudaSuccess)
+    return -1;
+  return sms * per_sm;
+}
+
+// steps: host array of n_global long steps then n_tile short steps (whose
+// sum is halo); state: 2 x 3 x rows*cols words of scratch; max_blocks: the
+// co-resident limit (rk_att_flood_max_blocks).
+extern "C" int rk_att_flood(const float* stack, float* state, float* out, int rows, int cols,
+                            int pad, int search_range, float scale, const int* steps,
+                            int n_global, int n_tile, int halo, int max_blocks,
                             void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int Rp = rows + pad;
-  const size_t bytes = (size_t)5 * Rp * cols * sizeof(float);
-  cudaMemcpyAsync(buf_a, stack, bytes, cudaMemcpyDeviceToDevice, stream);
-  cudaMemcpyAsync(buf_b, stack, bytes, cudaMemcpyDeviceToDevice, stream);
-  dim3 block(128);
-  dim3 grid((cols + 127) / 128, rows);
-  int s = 1;
-  while (2 * s < search_range) s *= 2;
-  float* src = buf_a;
-  float* dst = buf_b;
-  for (bool extra = false;; ) {
-    flood_step<<<grid, block, 0, stream>>>(src, dst, rows, cols, Rp, s);
-    float* t = src; src = dst; dst = t;
-    if (s > 1) {
-      s /= 2;
-    } else if (!extra) {
-      extra = true;  // the extra refinement pass at step 1 (JFA+1)
-    } else {
-      break;
-    }
+  if (n_global < 0 || n_tile < 1 || n_global + n_tile > kMaxSteps || halo > kHaloMax ||
+      halo > pad || rows < 1 || cols < 1 || max_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  Schedule sc{n_global, n_tile, halo, {}};
+  int sum = 0;
+  for (int k = 0; k < n_global + n_tile; ++k) {
+    if (steps[k] < 1 || steps[k] > pad) return (int)cudaErrorInvalidValue;
+    sc.steps[k] = steps[k];
+    if (k >= n_global) sum += steps[k];
   }
-  flood_finish<<<grid, block, 0, stream>>>(src, out, rows, cols, Rp,
-                                           (float)(search_range * search_range), scale);
-  return (int)cudaGetLastError();
+  if (sum != halo) return (int)cudaErrorInvalidValue;
+  const int tiles_x = (cols + kTile - 1) / kTile;
+  const int ntiles = ((rows + kTile - 1) / kTile) * tiles_x;
+  Geom g{rows, cols, pad, rows + pad, 5 * (rows + pad), rows * cols, tiles_x, ntiles,
+         (float)(search_range * search_range), scale};
+  int blocks = (g.n + kThreads - 1) / kThreads;
+  if (blocks < ntiles) blocks = ntiles;
+  if (blocks > max_blocks) blocks = max_blocks;
+  void* args[] = {&stack, &state, &out, &g, &sc};
+  return (int)cudaLaunchCooperativeKernel((const void*)att_flood_kernel, dim3(blocks),
+                                          dim3(kThreads), args, 0, stream);
 }

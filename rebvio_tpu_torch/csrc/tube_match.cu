@@ -9,30 +9,52 @@
 // / depth gates, the priority argmin (first probe wins ties) and the
 // winner payload.
 //
-// Bound on the H100: launch latency.  At 16000 keylines x 8 probes the
-// least traffic is 13 [K] f32 planes in, 8 probes x (6 field + 4 dynamic)
-// f32 gathered, 12 [K] f32 planes out: ~6.6 MB, ~2 us at 3.35 TB/s, about
-// one launch.
+// Bound on the H100: bytes.  At 16000 keylines x 8 probes the least
+// traffic is 13 [K] f32 planes in, 8 probes x (6 field + 4 dynamic) f32
+// gathered, 12 [K] f32 planes out: ~6.6 MB, ~2 us at 3.35 TB/s.  What the
+// first port lost: one thread per keyline walking its probes one after
+// another (16000 threads, under one block per SM), each probe a chain of 6
+// field gathers and then 4 `dyn` gathers on the id just read, with nothing
+// in flight to hide that latency.
 //
-// Design: one thread per keyline looping over the probes with running
-// selects; both gathers happen in the thread, so no [P,K] intermediate
-// touches device memory.
+// Design: a group of G lanes per keyline (G the power of two >= P, at most
+// 32; a lane loops over probes q, q + G, ... when P > 32): 128000 threads
+// at the parity profile.  Every lane reads the keyline's planes itself
+// (the G lanes of a group hit the same sector), projects its probe, makes
+// the six field gathers and the two `dyn` gathers the gates need (rho,
+// sigma_rho), with each probe's arithmetic the first port's, operation for
+// operation.  The winner is an argmin over the group by __shfl_xor_sync on
+// (prio, q): a smaller prio wins, on equal prio the smaller q (the first
+// probe, as jnp.argmin); a prio that is not ok or NaN counts as 1e9, as
+// tube_match_plain has it.  Only the winning lane gathers `matches` and the
+// keyframe id and writes the twelve planes; without a winner it writes
+// found 0, id -1, a zero payload and the prio.
 
+#include <climits>
+#include <cmath>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+
 struct Params {
-  int K, N, P, H, W, fscale, Wf;
+  int K, N, P, H, W, fscale, Wf, G, log2G;
   float pum, cang_min, norm_thr;
 };
 
-__global__ void tube_match(const float* __restrict__ kl, const float* __restrict__ att,
-                           const float* __restrict__ dyn, const float* __restrict__ M2,
-                           Params p, float* __restrict__ out) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= p.K) return;
+__global__ void __launch_bounds__(kThreads)
+    tube_match_kernel(const float* __restrict__ kl, const float* __restrict__ att,
+                      const float* __restrict__ dyn, const float* __restrict__ M2, Params p,
+                      float* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int K = p.K, N = p.N;
+  // groups past the last keyline repeat its work and write nothing: every
+  // lane of a warp takes part in the shuffles
+  const bool live = (t >> p.log2G) < K;
+  const int k = live ? (t >> p.log2G) : K - 1;
+  const int lane = t & (p.G - 1);
   const float tx = kl[k], ty = kl[K + k];
   const float pi0x = kl[2 * K + k], pi0y = kl[3 * K + k];
   const float dq_min = kl[4 * K + k], dq_max = kl[5 * K + k], dq_rho = kl[6 * K + k];
@@ -45,10 +67,14 @@ __global__ void tube_match(const float* __restrict__ kl, const float* __restrict
   const float denom_n = ngn > 0.0f ? ngn : 1.0f;
   const float nt2 = nt_eff * nt_eff;
   const float pum2 = p.pum * p.pum;
-  float best_prio = BIG;
-  float best[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   const float span = dq_max - dq_min;
-  for (int q = 0; q < p.P; ++q) {
+  // this lane's best probe: (prio, q) and the payload the gates read
+  float best_prio = INFINITY;
+  int best_q = INT_MAX;
+  float b_oid = 0.f, b_rho = 0.f, b_sr = 0.f, b_gx = 0.f, b_gy = 0.f, b_gn = 0.f, b_sx = 0.f,
+        b_sy = 0.f;
+  int b_os = 0;
+  for (int q = lane; q < p.P; q += p.G) {
     const float lam = (float)q / (float)(p.P - 1);
     const float t_probe = dq_min + span * lam;
     const float px = tx * t_probe + pi0x;
@@ -66,7 +92,6 @@ __global__ void tube_match(const float* __restrict__ kl, const float* __restrict
     const float gy_r = g0x * m10 + g0y * m11;
     const int os = min(max(inb ? (int)oid : -1, 0), K - 1);
     const float rho_o = dyn[os], sr_o = dyn[K + os];
-    const float m_o = dyn[2 * K + os], kf_o = dyn[3 * K + os];
     const bool has = inb && (oid >= 0.0f);
 
     const float dxs = sx - pi0x, dys = sy - pi0y;
@@ -82,17 +107,34 @@ __global__ void tube_match(const float* __restrict__ kl, const float* __restrict
     const float resid = t_eff - nt_eff * rho_o;
     const bool g_depth = !(resid * resid > v_rho_dr);
     const bool ok = valid && has && g_tube && g_win && g_ang && g_norm && g_depth;
-    const float prio = ok ? fabsf(t_eff - dq_rho) : BIG;
-    if (prio < best_prio) {  // strict: the first probe wins ties
+    const float raw = fabsf(t_eff - dq_rho);
+    const float prio = (ok && !isnan(raw)) ? raw : BIG;
+    if (best_q == INT_MAX || prio < best_prio) {  // q rises: the first probe wins ties
       best_prio = prio;
-      best[0] = oid; best[1] = rho_o; best[2] = sr_o; best[3] = gx_r; best[4] = gy_r;
-      best[5] = gn_old; best[6] = sx; best[7] = sy; best[8] = m_o; best[9] = kf_o;
+      best_q = q;
+      b_oid = oid; b_rho = rho_o; b_sr = sr_o; b_gx = gx_r; b_gy = gy_r;
+      b_gn = gn_old; b_sx = sx; b_sy = sy; b_os = os;
     }
   }
+  // argmin over the group on (prio, q); lanes without a probe hold
+  // (inf, INT_MAX) and lose every tie
+  const int mine = best_q;
+  for (int off = p.G >> 1; off > 0; off >>= 1) {
+    const float op = __shfl_xor_sync(kFull, best_prio, off);
+    const int oq = __shfl_xor_sync(kFull, best_q, off);
+    if (op < best_prio || (op == best_prio && oq < best_q)) {
+      best_prio = op;
+      best_q = oq;
+    }
+  }
+  if (!live || mine != best_q) return;
   const bool found = best_prio < BIG;
   out[k] = found ? 1.0f : 0.0f;
-  out[K + k] = found ? best[0] : -1.0f;
-  for (int j = 1; j < 10; ++j) out[(j + 1) * K + k] = best[j];
+  out[K + k] = found ? b_oid : -1.0f;
+  const float pay[9] = {b_rho, b_sr, b_gx, b_gy, b_gn, b_sx, b_sy,
+                        found ? dyn[2 * K + b_os] : 0.0f, found ? dyn[3 * K + b_os] : 0.0f};
+#pragma unroll
+  for (int j = 0; j < 9; ++j) out[(j + 2) * K + k] = found ? pay[j] : 0.0f;
   out[11 * K + k] = best_prio;
 }
 
@@ -103,7 +145,14 @@ extern "C" int rk_tube_match(const float* kl, const float* att, const float* dyn
                              float pum, float cang_min, float norm_thr, float* out,
                              void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  Params p{K, N, P, H, W, fscale, (W + fscale - 1) / fscale, pum, cang_min, norm_thr};
-  tube_match<<<(K + 127) / 128, 128, 0, stream>>>(kl, att, dyn, M2, p, out);
+  if (K < 1 || P < 2) return (int)cudaErrorInvalidValue;
+  int log2G = 0;
+  while ((1 << log2G) < P && log2G < 5) ++log2G;
+  const int G = 1 << log2G;
+  Params p{K, N, P, H, W, fscale, (W + fscale - 1) / fscale, G, log2G,
+           pum, cang_min, norm_thr};
+  const long long threads = (long long)K * G;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  tube_match_kernel<<<blocks, kThreads, 0, stream>>>(kl, att, dyn, M2, p, out);
   return (int)cudaGetLastError();
 }

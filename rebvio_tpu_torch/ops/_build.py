@@ -32,7 +32,8 @@ BUILD_INFO = {"seconds": None, "path": None, "ptxas": ""}
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "rk_att_flood": [P, P, P, P, I, I, I, I, F, P],
+    "rk_att_flood": [P, P, P, I, I, I, I, F, P, I, I, I, I, P],
+    "rk_att_flood_max_blocks": [],
     "rk_minimize_vel": [P] * 8 + [I] * 5 + [F] * 6 + [I] + [P] * 4 + [P],
     "rk_minimize_vel_blocks": [I],
     "rk_minimize_vel_max_blocks": [],

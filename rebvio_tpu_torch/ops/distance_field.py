@@ -60,8 +60,10 @@ def seed_stack_dense(kl_id_img, sub_x, sub_y, gx, gy, threshold,
     floor((c+sub_x)/s + 0.5)); where several pixels seed one cell the
     largest keyline id wins (ids are raster-order ranks, so this is the
     scatter's last-writer rule).  Written here as one deterministic
-    scatter-max over the pixels, then a write of the unique winners'
-    payload; the JAX version reaches the same stack with a 9-tap reduce."""
+    scatter-max of the ids over the pixels, a second of the pixel index over
+    the pixels that hold their cell's winning id (ids are unique, so one per
+    cell), then a gather of the five planes at that pixel: no host sync.  The
+    JAX version reaches the same stack with a 9-tap reduce."""
     H, W = kl_id_img.shape
     dev = kl_id_img.device
     s = scale
@@ -77,24 +79,33 @@ def seed_stack_dense(kl_id_img, sub_x, sub_y, gx, gy, threshold,
     px = (cc + sub_x) * inv_s
     fr = torch.floor(py + 0.5)
     fc = torch.floor(px + 0.5)
-    inb = use & (fr >= 0) & (fr < frows) & (fc >= 0) & (fc < fcols)
+    inb = (use & (fr >= 0) & (fr < frows) & (fc >= 0) & (fc < fcols)).reshape(-1)
     n = frows * fcols
-    cell = torch.where(inb, fr * fcols + fc, float(n)).to(torch.int64).reshape(-1)
+    # a pixel that seeds no cell writes a slot of its own past the n cells:
+    # sent to one shared slot, all the pixels but the kept keylines would
+    # serialize on a single atomic address
+    pix = torch.arange(H * W, dtype=torch.int64, device=dev)
+    slot = torch.where(inb, (fr * fcols + fc).reshape(-1).to(torch.int64), n + pix)
     ids = kl_id_img.reshape(-1)
-    best = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
-    best = best.scatter_reduce(0, cell, torch.where(inb.reshape(-1), ids, -1), reduce="amax")
-    win = inb.reshape(-1) & (best[cell] == ids)        # one winner per cell
-    wcell = cell[win]
+    best = torch.full((n + H * W,), -1, dtype=torch.int32, device=dev)
+    best = best.scatter_reduce(0, slot, torch.where(inb, ids, -1), reduce="amax")
+    won = inb & (best[slot] == ids)
+    wpix = torch.full((n + H * W,), -1, dtype=torch.int64, device=dev)
+    wpix = wpix.scatter_reduce(0, torch.where(won, slot, n + pix), torch.where(won, pix, -1),
+                               reduce="amax")[:n]
+    has = wpix >= 0
+    gathered = torch.stack([py, px, kl_id_img.to(torch.float32), gx, gy]).reshape(5, H * W)[
+        :, wpix.clamp(min=0)]
 
+    # the sentinels (BIG, BIG, -1, 0, 0) filled on the device, not copied from the host
+    sentinel = torch.full((5, 1), BIG, dtype=torch.float32, device=dev)
+    sentinel[2] = -1.0
+    sentinel[3:] = 0.0
     PAD = flood_pad(sr)
-    Rp = frows + PAD
-    fill = torch.tensor([BIG, BIG, -1.0, 0.0, 0.0], dtype=torch.float32, device=dev)
-    stack = fill[:, None, None].expand(5, Rp, fcols).contiguous()
-    data = stack[:, :frows, :].reshape(5, n)
-    for r, plane in enumerate((py, px, kl_id_img.to(torch.float32), gx, gy)):
-        data[r, wcell] = plane.reshape(-1)[win]
-    stack[:, :frows, :] = data.reshape(5, frows, fcols)
-    return stack.reshape(5 * Rp, fcols)
+    stack = torch.empty((5, frows + PAD, fcols), dtype=torch.float32, device=dev)
+    stack[:, :frows] = torch.where(has, gathered, sentinel).reshape(5, frows, fcols)
+    stack[:, frows:] = sentinel[:, :, None]
+    return stack.reshape(5 * (frows + PAD), fcols)
 
 
 def att_rows(att_planes: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ replaces no TPU kernel and is counted here too.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -78,6 +79,21 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+_COOP_BLOCKS = {}      # (C entry point, device index) -> co-resident block limit
+
+
+def _coop_limit(lib, entry: str, dev: torch.device) -> int:
+    """The most blocks of ``entry``'s cooperative kernel that can be
+    co-resident on ``dev`` (``<entry>_max_blocks``), queried once per device."""
+    key = (entry, dev.index)
+    if key not in _COOP_BLOCKS:
+        with torch.cuda.device(dev):
+            _COOP_BLOCKS[key] = getattr(lib, entry + "_max_blocks")()
+    if _COOP_BLOCKS[key] < 1:
+        raise RuntimeError(f"{entry}: the occupancy query for the cooperative launch failed")
+    return _COOP_BLOCKS[key]
+
+
 # --------------------------------------------------------------------------
 # K1: jump flood
 
@@ -89,20 +105,53 @@ def flood_layout(rows: int, search_range: int):
     return pad, rows + pad
 
 
+FLOOD_HALO_MAX = 8      # csrc/flood.cu kHaloMax: the tile phase's largest halo
+
+
+def flood_schedule(search_range: int):
+    """csrc/flood.cu's split of ``flood_steps``: (long steps, run as full-grid
+    passes; short steps, run on shared-memory tiles; halo, the short steps'
+    sum).  A step is short while it and the steps after it sum to at most
+    ``FLOOD_HALO_MAX``."""
+    from rebvio_tpu_torch.ops.distance_field import flood_steps
+
+    steps = flood_steps(search_range)
+    k = len(steps)
+    while k > 0 and sum(steps[k - 1:]) <= FLOOD_HALO_MAX:
+        k -= 1
+    return steps[:k], steps[k:], sum(steps[k:])
+
+
+@functools.lru_cache(maxsize=None)
+def _flood_args(search_range: int, pad: int):
+    """The schedule as rk_att_flood's arguments: (int array of the long then
+    short steps, long count, short count, halo)."""
+    long_steps, short_steps, halo = flood_schedule(search_range)
+    if max(long_steps + short_steps) > pad or halo > pad:
+        raise ValueError(f"att_flood: a step or the halo {halo} exceeds PAD {pad}: pad rows "
+                         f"would no longer stand for every read outside the data rows")
+    steps = long_steps + short_steps
+    return (ctypes.c_int * len(steps))(*steps), len(long_steps), len(short_steps), halo
+
+
 def att_flood(stack: torch.Tensor, search_range: int, rows: int, cols: int,
               scale: int) -> torch.Tensor:
     """Jump flood over the seeded region stack ``[5*(rows+PAD), cols]``;
-    returns the ``[8, rows*cols]`` attribute planes (see csrc/flood.cu)."""
+    returns the ``[8, rows*cols]`` attribute planes (see csrc/flood.cu: one
+    cooperative launch; its (sy, sx, src) state ping-pongs in a
+    ``[2, 3, rows*cols]`` scratch; the stack is only read)."""
     if not _on_cuda(stack):
         return att_flood_plain(stack, search_range, rows, cols, scale)
     pad, Rp = flood_layout(rows, search_range)
     _check(stack, f32, (5 * Rp, cols), "att_flood stack")
+    steps, n_long, n_short, halo = _flood_args(search_range, pad)
     lib = _build.load()
-    a = torch.empty_like(stack)
-    b = torch.empty_like(stack)
-    out = torch.empty((8, rows * cols), dtype=f32, device=stack.device)
-    err = lib.rk_att_flood(_ptr(stack), _ptr(a), _ptr(b), _ptr(out), rows, cols, pad,
-                           search_range, float(scale), _stream(stack))
+    n = rows * cols
+    state = torch.empty((2, 3, n), dtype=f32, device=stack.device)
+    out = torch.empty((8, n), dtype=f32, device=stack.device)
+    err = lib.rk_att_flood(_ptr(stack), _ptr(state), _ptr(out), rows, cols, pad, search_range,
+                           float(scale), steps, n_long, n_short, halo,
+                           _coop_limit(lib, "rk_att_flood", stack.device), _stream(stack))
     _raise_on(err, "att_flood")
     LAUNCHES["att_flood"] += 1
     return out
@@ -336,9 +385,6 @@ class TryVelGeom(NamedTuple):
     mthr: float       # gradient-similarity threshold
 
 
-_COOP_BLOCKS = {}      # device index -> co-resident block limit of the solve's kernel
-
-
 def _launch_minimize_vel(name, pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att,
                          g: TryVelGeom, iterations: int):
     """Checks, allocates once and launches csrc/try_vel.cu's cooperative
@@ -357,14 +403,10 @@ def _launch_minimize_vel(name, pos_img, rho, sigma_rho, grad, use_f, residuals, 
     lib = _build.load()
     dev = rho.device
     nblk = lib.rk_minimize_vel_blocks(K)
-    if dev.index not in _COOP_BLOCKS:
-        with torch.cuda.device(dev):
-            _COOP_BLOCKS[dev.index] = lib.rk_minimize_vel_max_blocks()
-    if _COOP_BLOCKS[dev.index] < 1:
-        raise RuntimeError(f"{name}: the occupancy query for the cooperative launch failed")
-    if nblk > _COOP_BLOCKS[dev.index]:
-        raise ValueError(f"{name}: {K} keylines need {nblk} blocks, but only "
-                         f"{_COOP_BLOCKS[dev.index]} can be co-resident for the grid sync")
+    limit = _coop_limit(lib, "rk_minimize_vel", dev)
+    if nblk > limit:
+        raise ValueError(f"{name}: {K} keylines need {nblk} blocks, but only {limit} can be "
+                         f"co-resident for the grid sync")
     n_out = 16 + 3 * iterations
     buf = torch.empty((n_out + 2 * nblk * 11,), dtype=f32, device=dev)
     res = torch.empty((K,), dtype=f32, device=dev)

@@ -30,9 +30,9 @@ from rebvio_tpu_torch.data import synthetic
 from rebvio_tpu_torch.runner import VioRunner
 
 # kernel names (substrings of the device symbols) of the ported kernels
-PORTED = {"att_flood": ("flood_step", "flood_finish"),
+PORTED = {"att_flood": ("att_flood_kernel",),
           "minimize_vel": ("minimize_vel_kernel",),
-          "tube_match": ("tube_match",),
+          "tube_match": ("tube_match_kernel",),
           "reg_ekf": ("reg_ekf",),
           "estimate_bias": ("estimate_bias_kernel",),
           "chol_inverse": ("chol_inverse_kernel",)}

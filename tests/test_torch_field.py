@@ -79,16 +79,40 @@ def detected():
     return args, sr, jc
 
 
-def test_seed_stack_dense_exact(detected):
+def _compare_seed_stack(args, sr, H, W, scale):
+    ref = np.asarray(jDF.seed_stack_dense(*[jnp.asarray(a) for a in args], sr, H, W, scale))
+    out = t2n(tDF.seed_stack_dense(*[torch.as_tensor(a) for a in args], sr, H, W, scale))
+    assert out.shape == ref.shape
+    np.testing.assert_array_equal(out.view(np.int32), ref.view(np.int32))
+    return out
+
+
+@pytest.mark.parametrize("field_scale", [1, 2, 3])
+def test_seed_stack_dense_exact(detected, field_scale):
     args, sr, jc = detected
     H, W = SMALL_CAMERA["rows"], SMALL_CAMERA["cols"]
-    ref = np.asarray(jDF.seed_stack_dense(*[jnp.asarray(a) for a in args], sr, H, W,
-                                          jc.field_scale))
-    out = t2n(tDF.seed_stack_dense(*[torch.as_tensor(a) for a in args], sr, H, W,
-                                   jc.field_scale))
-    assert out.shape == ref.shape
-    np.testing.assert_array_equal(out, ref)
+    out = _compare_seed_stack(args, sr, H, W, field_scale)
     assert (out >= 0).sum() > 100
+
+
+@pytest.mark.parametrize("field_scale,threshold", [(2, 0.0), (3, 30.0)])
+def test_seed_stack_dense_collisions_exact(field_scale, threshold):
+    """Nine keyline pixels in four share a field cell (keylines on most
+    pixels, sub-pixel offsets up to half a pixel, some gated out by the
+    threshold): the largest id wins the cell and its pixel's five values are
+    gathered, as JAX's 9-tap reduce has it."""
+    rng = np.random.RandomState(field_scale)
+    H, W = 23, 31
+    kl = rng.rand(H, W) < 0.9
+    kl_id = np.where(kl, np.cumsum(kl).reshape(H, W) - 1, -1).astype(np.int32)
+    sub = rng.uniform(-0.5, 0.5, (2, H, W)).astype(np.float32)
+    g = rng.normal(0, 40, (2, H, W)).astype(np.float32)
+    args = (kl_id, sub[0], sub[1], g[0], g[1], np.float32(threshold))
+    out = _compare_seed_stack(args, 7, H, W, field_scale)
+    frows, fcols, _ = tDF.field_geometry(7, H, W, field_scale)
+    ids = out.reshape(5, -1, fcols)[2, :frows]
+    assert (ids >= 0).sum() > 0.8 * frows * fcols
+    assert (ids >= 0).sum() < kl.sum() / 2          # most cells had several candidates
 
 
 def test_flood_plain_matches_pallas_on_detection(detected):

@@ -1,6 +1,7 @@
 """The port's fused LM solve (kernels.minimize_vel, kernel K2's plain version
 on the CPU) and its Cholesky inverse against the JAX package, and a source
-check that the step's modules never read a tensor back to the host."""
+check that the step's modules never read a tensor back to the host (nor
+index the field seeding by a boolean mask)."""
 
 from __future__ import annotations
 
@@ -156,3 +157,29 @@ def test_host_read_detector_sees_them():
     assert sorted(a for _, a in _host_reads(ast.parse(src))) == [
         "cpu", "item", 'to("cpu")', "tolist"]
     assert STEP_SOURCES and "geometry/linalg.py" in STEP_SOURCES
+
+
+MASK_NAMES = ("win", "mask")
+
+
+def _mask_subscripts(tree):
+    """Subscripts by a boolean mask named ``win`` or ``mask`` (``x[win]``,
+    ``x[r, mask]``): on a device tensor each is a nonzero and a host sync."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Subscript):
+            idx = node.slice.elts if isinstance(node.slice, ast.Tuple) else [node.slice]
+            for e in idx:
+                if isinstance(e, ast.Name) and e.id in MASK_NAMES:
+                    yield node.lineno, e.id
+
+
+def test_field_seeding_never_masks():
+    """ops/distance_field.py seeds the field every frame without a host sync:
+    no boolean-mask indexing (and no host read, above)."""
+    found = list(_mask_subscripts(ast.parse((PORT / "ops" / "distance_field.py").read_text())))
+    assert not found, f"ops/distance_field.py: mask indexing at {found}"
+
+
+def test_mask_subscript_detector_sees_them():
+    src = "def f(a, win, mask, w):\n    b = a[win]\n    a[0, mask] = 1\n    return b, a[w]\n"
+    assert sorted(n for _, n in _mask_subscripts(ast.parse(src))) == ["mask", "win"]
