@@ -14,6 +14,11 @@ Phases (any failure exits non-zero):
      against its plain PyTorch version on the card, on inputs taken from the
      paths at their shapes (a VO frame pair and its post-step map;
      att_flood also at search ranges 5 and 40 and tube_match at 4 probes;
+     reg_ekf as the step's fused stage match_reg_ekf (the
+     matcher's tail, the gate, the depth update) on frame 1's match, a
+     random case, a forced failure (threshold above klm) and a NaN velocity,
+     and the depth update alone on the matched map; nn_field at search
+     ranges 5, 20 and 40 on the field and on the full-resolution 480x752 one;
      estimate_bias at the first frame the SAB filter is engaged; the fused LM
      solve minimize_vel with every iteration's gain and accept flag, launched
      twice for bit-identity) plus seeded random cases
@@ -22,14 +27,15 @@ Phases (any failure exits non-zero):
      time, the plain version's time and its bound; the seeding's winner
      plane against the plain scatter-max; and the scatter-seeded field
      (att_field) against the dense-seeded one (att_flood) on the detector's
-     own map; frame 1's seed_stack_dense -> att_flood -> tube_match under
+     own map; frame 1's seed_stack_dense -> att_flood -> tube_match -> the
+     fused depth stage (matching.match_and_update_depth) under
      torch.cuda.set_sync_debug_mode("error") (no host sync allowed); the
      Cholesky inverse (csrc/chol_inverse.cu, no TPU kernel behind it) on the
      three matrices a VIO frame inverts and on one that is not positive
      definite; then the single-pass entry point tracker.try_vel driven over
      the frame pair with the counters set to 0 before it.  att_flood,
-     att_field and tube_match must equal their plain versions bit for bit
-     on every plane;
+     att_field, tube_match and nn_field must equal their plain versions bit
+     for bit on every plane, reg_ekf on its ids, counters, klm and failed;
   3. VO slice: VioRunner(undistort=False) over 24 synthetic frames, with the
      launch counters set to 0 just before and read just after, the
      trajectory held against the committed JAX golden
@@ -121,7 +127,9 @@ REPLACES = {
 # of the tube matcher (their kernels repeat the plain arithmetic op for op)
 EXACT = {"att_flood": {0: (None,)}, "try_vel": {4: (None,)}, "minimize_vel": {5: (None,)},
          "tube_match": {0: (None,)},
-         "reg_ekf": {}, "estimate_bias": {}, "att_field": {0: (None,)}, "nn_field": {0: (None,)}}
+         "reg_ekf": {}, "estimate_bias": {}, "att_field": {0: (None,)}, "nn_field": {0: (None,)},
+         # the fused stage: match ids, match counts, keyframe ids, klm, failed
+         "match_reg_ekf": {i: (None,) for i in (2, 3, 7, 8, 9)}}
 SOURCES = {
     "att_flood": "rebvio_tpu_torch/csrc/flood.cu",
     "try_vel": "rebvio_tpu_torch/csrc/try_vel.cu",
@@ -144,7 +152,7 @@ SOURCES = {
 # frame and test_sab.py's trials; 1e-4); att_field repeats its plain version's
 # arithmetic op for op (1e-6; 0 is expected) and nn_field's output is ids
 TOL_REL = {"att_flood": 1e-6, "try_vel": 1e-4, "tube_match": 1e-6, "reg_ekf": 1e-6,
-           "estimate_bias": 1e-4, "att_field": 1e-6, "nn_field": 0.0}
+           "estimate_bias": 1e-4, "att_field": 1e-6, "nn_field": 0.0, "match_reg_ekf": 1e-6}
 # minimize_vel against minimize_vel_plain: 1 + iterations dependent passes, each
 # with Gram sums of 16000 terms in another order (4.3e-6 relative per pass).
 # Every accept flag must agree, unless the first that differs sits on a trial
@@ -343,7 +351,7 @@ def main() -> int:
     from rebvio_tpu_torch.ba import pose_graph as pgm
     from rebvio_tpu_torch.ba.keyframe_map import KeyframeMapBuilder
     from rebvio_tpu_torch.geometry import linalg, so3
-    from rebvio_tpu_torch.ops import tracker
+    from rebvio_tpu_torch.ops import matching, tracker
     from rebvio_tpu_torch.runner import RunResult, VioRunner
     from rebvio_tpu_torch.tools import jfa_ab
 
@@ -370,12 +378,13 @@ def main() -> int:
     # (frames 0, 1), estimate_bias on the VIO stream up to the first frame
     # with the SAB filter engaged (num_frames > 4 + init_bias_frame_num)
     captured = {}
-    step_names = ["att_flood", "minimize_vel", "tube_match", "reg_ekf", "estimate_bias"]
+    step_names = ["att_flood", "minimize_vel", "tube_match", "match_reg_ekf", "estimate_bias"]
     originals = {name: getattr(kernels, name) for name in step_names}
     solve_maps, chol_inputs = [], []     # (old map, field) of each LM solve; chol_inverse's inputs
     seed_calls = []                      # distance_field.seed_stack_dense's inputs, one a frame
+    stage_calls = []                     # matching.match_and_update_depth's (args, kwargs, out)
     plain_solve, plain_chol = tracker.minimize_vel, linalg.chol_inverse
-    plain_seed = DF.seed_stack_dense
+    plain_seed, plain_stage = DF.seed_stack_dense, matching.match_and_update_depth
 
     def recording_solve(old, att, *rest, **kw):
         solve_maps.append((old, att))
@@ -389,6 +398,11 @@ def main() -> int:
         seed_calls.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
         return plain_seed(*args)
 
+    def recording_stage(*args, **kw):
+        out = plain_stage(*args, **kw)
+        stage_calls.append((args, kw, out))
+        return out
+
     def recorder(name):
         def call(*args):
             captured.setdefault(name, []).append(
@@ -400,7 +414,7 @@ def main() -> int:
         for name in names:
             setattr(kernels, name, recorder(name))
         tracker.minimize_vel, linalg.chol_inverse = recording_solve, recording_chol
-        DF.seed_stack_dense = recording_seed
+        DF.seed_stack_dense, matching.match_and_update_depth = recording_seed, recording_stage
         try:
             r = VioRunner(run_cfg, undistort=undistort, device="cuda")
             r.run(prefix(sq, n))
@@ -408,7 +422,7 @@ def main() -> int:
             for name in names:
                 setattr(kernels, name, originals[name])
             tracker.minimize_vel, linalg.chol_inverse = plain_solve, plain_chol
-            DF.seed_stack_dense = plain_seed
+            DF.seed_stack_dense, matching.match_and_update_depth = plain_seed, plain_stage
         return r
 
     vo_names = [n for n in step_names if n != "estimate_bias"]
@@ -427,6 +441,8 @@ def main() -> int:
 
     rng = np.random.RandomState(0)
     cases = {name: [("frame 1", captured[name][0])] for name in vo_names}
+    # nn_field beyond the loop-closure field's search range: 5 and 40 on the
+    # frame-1 table, and the three at full resolution (scale 1, 480x752)
     # the single pass on the solve's inputs: zero residuals, the starting velocity
     mv = captured["minimize_vel"][0]
     cases["try_vel"] = [("frame 1", (*mv[:5], torch.zeros_like(mv[1]), mv[5], mv[6], mv[7]))]
@@ -475,7 +491,31 @@ def main() -> int:
     a = list(captured["tube_match"][0])
     a[4] = a[4]._replace(P=4)
     cases["tube_match"].append(("frame 1, 4 probes", tuple(a)))
-    a = list(captured["reg_ekf"][0])
+    # the fused depth stage: frame 1's match, random depths and velocity, a
+    # forced failure (the threshold above klm: the matched map comes out), a
+    # NaN velocity (the unmatched map, klm 0)
+    mre = captured["match_reg_ekf"][0]
+    a = list(mre)
+    a[1] = on_dev(rng.uniform(0.05, 3.0, K).astype(np.float32))     # rho
+    a[15] = on_dev(rng.normal(0, 0.02, 3).astype(np.float32))      # vel
+    cases["match_reg_ekf"].append(("random depths/vel", tuple(a)))
+    a = list(mre)
+    a[18] = a[18]._replace(min_matches=10 ** 9)
+    cases["match_reg_ekf"].append(("failed: min_matches above klm", tuple(a)))
+    a = list(mre)
+    a[15] = a[15].clone()
+    a[15][1] = float("nan")
+    a[17] = torch.isnan(a[15]).any()
+    cases["match_reg_ekf"].append(("NaN velocity", tuple(a)))
+    # the depth update alone (nothing matched) on frame 1's matched map, and random
+    matched, _klm = kernels.match_tail_plain(mre[0], mre[1], mre[2], mre[8], mre[9], mre[12],
+                                             mre[13], mre[14], mre[10], mre[16],
+                                             *mre[18][3:6])
+    reg_in = (matched[0], matched[1], mre[3], mre[4], mre[5], mre[6], mre[7], matched[2],
+              mre[11], matched[4], matched[5], matched[6], mre[15],
+              kernels.RegEkfParams(*mre[18][:4]))
+    cases["reg_ekf"] = [("frame 1, matched map", reg_in)]
+    a = list(reg_in)
     a[0] = on_dev(rng.uniform(0.05, 3.0, K).astype(np.float32))     # rho
     a[12] = on_dev(rng.normal(0, 0.02, 3).astype(np.float32))      # vel
     cases["reg_ekf"].append(("random depths/vel", tuple(a)))
@@ -498,6 +538,13 @@ def main() -> int:
         cases.setdefault("nn_field", []).append((label, (pos_f, use, fsr, frows, fcols)))
 
     field_cases("frame 1 map", map1.pos, map1.grad, DF.keyline_gate(map1))
+    gate1 = DF.keyline_gate(map1)
+    pos1_f = cases["nn_field"][0][1][0]
+    for r_ in (5, 40):
+        cases["nn_field"].append((f"frame 1 map, range {r_}", (pos1_f, gate1, r_, frows, fcols)))
+    for r_ in (5, 20, 40):
+        cases["nn_field"].append((f"frame 1 map, full resolution {H}x{W}, range {r_}",
+                                  (map1.pos.contiguous(), gate1, r_, H, W)))
     for trial in range(2):
         half = K // 2
         p = np.stack([rng.uniform(-6, W + 6, K), rng.uniform(-6, H + 6, K)], -1)
@@ -541,15 +588,15 @@ def main() -> int:
     plain = {"att_flood": kernels.att_flood_plain, "try_vel": kernels.try_vel_plain,
              "tube_match": kernels.tube_match_plain, "reg_ekf": kernels.reg_ekf_plain,
              "estimate_bias": kernels.estimate_bias_plain,
-             "att_field": kernels.att_field_plain, "nn_field": kernels.nn_field_plain}
+             "att_field": kernels.att_field_plain, "nn_field": kernels.nn_field_plain,
+             "match_reg_ekf": kernels.match_reg_ekf_plain}
 
     def as_list(out):
         return list(out) if isinstance(out, (tuple, list)) else [out]
 
     report = {}
-    for name in REPLACES:
-        if name == "minimize_vel":      # its own comparison, below
-            continue
+    # minimize_vel has its own comparison, below; reg_ekf runs alone and fused
+    for name in [n for n in REPLACES if n != "minimize_vel"] + ["match_reg_ekf"]:
         worst_abs, worst_rel, exact = 0.0, 0.0, {}
         for label, args in cases[name]:
             got = as_list(getattr(kernels, name)(*args))
@@ -583,27 +630,39 @@ def main() -> int:
         plain_ms = median_ms(torch, lambda: plain[name](*args))
         report[name] = dict(max_abs_err=worst_abs, max_rel_err=worst_rel, tol_rel=tol,
                             exact=exact, ms=kern_ms, plain_ms=plain_ms)
+    for m, info in kernels.NN_PLAN_INFO.items():
+        print(json.dumps({"check": "nn_field cluster plan", "field_and_keylines": list(m),
+                          "plan": info}))
 
     # frame 1's field seeding, flood and tube match under the sync debug mode
     # "error": a host sync in any of them raises.  The stack and the field
     # must equal the ones the VO slice built from the same inputs
     seed_args, flood_args = seed_calls[1], captured["att_flood"][1]
+    st_args, st_kw, st_out = stage_calls[0]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         stack_ns = DF.seed_stack_dense(*seed_args)
         att_ns = kernels.att_flood(stack_ns, *flood_args[1:])
         tm_ns = kernels.tube_match(*captured["tube_match"][0])
+        stage_ns = matching.match_and_update_depth(*st_args, **st_kw)
     except RuntimeError as e:
-        return fail(f"seed_stack_dense -> att_flood -> tube_match synced the host: {e}")
+        return fail(f"seed_stack_dense -> att_flood -> tube_match -> match_and_update_depth "
+                    f"synced the host: {e}")
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     same = dict(stack=bits_equal(torch, stack_ns, flood_args[0]),
                 field=bits_equal(torch, att_ns, kernels.att_flood(*flood_args)),
-                tube=bits_equal(torch, tm_ns, kernels.tube_match(*captured["tube_match"][0])))
-    print(json.dumps({"check": "no host sync: seed_stack_dense -> att_flood -> tube_match, "
-                               "frame 1, set_sync_debug_mode('error')", "bit_identical": same}))
+                tube=bits_equal(torch, tm_ns, kernels.tube_match(*captured["tube_match"][0])),
+                depth_stage=all(bits_equal(torch, getattr(stage_ns[0], k), getattr(st_out[0], k))
+                                for k in kernels.MATCH_PLANES)
+                and bits_equal(torch, stage_ns[1], st_out[1])
+                and bits_equal(torch, stage_ns[2], st_out[2]))
+    print(json.dumps({"check": "no host sync: seed_stack_dense -> att_flood -> tube_match -> "
+                               "match_and_update_depth, frame 1, set_sync_debug_mode('error')",
+                      "bit_identical": same, "klm": int(stage_ns[1]),
+                      "failed": bool(stage_ns[2])}))
     if not all(same.values()):
         return fail(f"the no-sync run differs from the slice's: {same}")
 
@@ -670,7 +729,18 @@ def main() -> int:
                                  passes * K * 75 + (passes - 1) * 150)
     P = captured["tube_match"][0][4].P
     b["tube_match"] = bound_ms(K * 13 * 4 + P * K * 10 * 4 + 16 + 12 * K * 4, P * K * 55)
-    b["reg_ekf"] = bound_ms(K * (15 * 4 + 1) + K * 2 * 5 * 4 + 12 + 2 * K * 4, K * 80)
+    # reg_ekf on the step (the fused stage), each plane read or written once
+    # (the neighbours' values lie in planes already counted): K4's output
+    # planes 0-10 (the kernel never reads prio), the map's [K] planes (rho,
+    # sigma_rho, grad_norm, match_grad_norm, id_next, id_prev, match_id,
+    # matches, keyframe id; valid) and [K, 2] planes (grad, pos_img,
+    # match_pos_img, match_grad), vel, R_tot, fail_nan in; the eight planes,
+    # klm and failed out; ~20 operations for the tail, ~40 for regularization,
+    # ~40 for the EKF per keyline.  The depth update alone: 15 float planes
+    # and valid in, vel, 2 planes out
+    b["reg_ekf"] = bound_ms(K * 11 * 4 + K * (9 * 4 + 1 + 4 * 8) + 12 + 36 + 1
+                            + K * (6 * 4 + 2 * 8) + 5, K * 100)
+    b["reg_ekf_alone"] = bound_ms(K * (15 * 4 + 1) + 12 + 2 * K * 4, K * 80)
     # estimate_bias: its inputs (3+3+7+88+9+9+36+6+1 floats) read once and its
     # outputs (1+7+49+6) written once
     b["estimate_bias"] = bound_ms((162 + 63) * 4, sab_flops(vcfg.imu.sab_iterations))
@@ -682,6 +752,15 @@ def main() -> int:
     # directions per step, each a distance (5 operations), a compare and the
     # gate's share
     b["nn_field"] = bound_ms(K * 9 + n * 4, steps * 8 * 7 * n + 6 * K)
+    # the step runs reg_ekf as the fused stage: its line carries that call,
+    # the depth update alone (nothing matched) has a line of its own
+    alone = report.pop("reg_ekf")
+    alone["bound_ms"], alone["bound_by"] = b["reg_ekf_alone"]
+    print(json.dumps({"kernel": "reg_ekf (alone: tracker.regularize_and_update_depth)",
+                      **alone}), flush=True)
+    report["reg_ekf"] = report.pop("match_reg_ekf")
+    report["reg_ekf"]["max_abs_err"] = max(report["reg_ekf"]["max_abs_err"],
+                                           alone["max_abs_err"])
     for name in REPLACES:
         report[name]["bound_ms"], report[name]["bound_by"] = b[name]
         print(json.dumps({"kernel": name, **report[name]}), flush=True)
@@ -988,7 +1067,7 @@ def main() -> int:
             "minimize_vel": 0, "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0,
             "chol_inverse": 0}
     print(json.dumps({"slice": "field tool, fast profile (8192 keylines, field 240x376)",
-                      "us_per_call_events_host_device": {k: list(v) for k, v in tool.items()},
+                      "us_per_call_events_host_device_and_activities": {k: list(v) for k, v in tool.items()},
                       "launches": tl}), flush=True)
     if tl != want:
         return fail(f"field tool launch counts {tl}, expected {want}")

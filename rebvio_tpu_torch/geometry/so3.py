@@ -96,11 +96,10 @@ def rotation_between(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     V = hat(v)
     k = (1.0 - c) / torch.where(s2 < _EPS, torch.ones_like(s2), s2)
     R_gen = _eye_like(V) + V + k[..., None, None] * (V @ V)
-    ex = torch.zeros_like(a)   # filled in place: no host-to-device copy
-    ex[..., 0] = 1.0
-    ey = torch.zeros_like(a)
-    ey[..., 1] = 1.0
-    alt = torch.where((torch.abs(a[..., 0]) < 0.9)[..., None], ex, ey)
+    # the axes as rows of an identity made on a's device: a scalar assigned
+    # into a device tensor would be a host-to-device copy, a host sync
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    alt = torch.where((torch.abs(a[..., 0]) < 0.9)[..., None], eye[0], eye[1])
     ortho = _normalize(torch.linalg.cross(a, alt))
     R_pi = exp(ortho * math.pi)
     antipodal = c < -1.0 + 1e-6

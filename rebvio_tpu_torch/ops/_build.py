@@ -38,11 +38,12 @@ _SIGNATURES = {
     "rk_minimize_vel_blocks": [I],
     "rk_minimize_vel_max_blocks": [],
     "rk_tube_match": [P] * 4 + [I] * 6 + [F] * 3 + [P, P],
-    "rk_reg_ekf": [P] * 13 + [I] + [F] * 4 + [P, P, P],
+    "rk_match_reg_ekf": [P, I, I] + [F] * 6 + [P],
     "rk_estimate_bias": [P] * 9 + [I] + [P] * 4 + [P],
     "rk_seed_winner": [P, P, I, F, I, I, P, P],
     "rk_seed_stack": [P, P, P, F, I, I, I, P, P],
-    "rk_nn_flood": [P] * 7 + [I, I, I, P],
+    "rk_nn_cluster_occupancy": [I] * 5,
+    "rk_nn_cluster": [P] * 3 + [I] * 10 + [P],
     "rk_chol_inverse": [P, P, I, I, P],
 }
 

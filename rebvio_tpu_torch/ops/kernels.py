@@ -8,7 +8,7 @@ launch counters.
 | try_vel     | csrc/try_vel.cu       | try_vel_math_pallas (K2; also try_vel_pallas)|
 | minimize_vel| csrc/try_vel.cu       | the same, 1 + iterations passes + LM update |
 | tube_match  | csrc/tube_match.cu    | tube_match_pallas (K4)                      |
-| reg_ekf     | csrc/reg_ekf.cu       | reg_ekf_pallas (K5)                         |
+| match_reg_ekf | csrc/reg_ekf.cu     | reg_ekf_pallas (K5), with the matcher's tail and the gate; reg_ekf is its call with nothing matched |
 | estimate_bias | csrc/sab.cu         | estimate_bias_pallas (K3)                   |
 | att_field   | csrc/seed_scatter.cu, csrc/flood.cu | att_field_pallas (K1b)        |
 | nn_field    | csrc/seed_scatter.cu, csrc/nn_flood.cu | nn_field_pallas (K7)       |
@@ -45,10 +45,10 @@ def reset_launches():
 
 
 def _on_cuda(*ts) -> bool:
-    devs = {t.device.type for t in ts}
-    if devs == {"cpu"}:
+    devs = {t.get_device() for t in ts}      # -1 on the CPU, else the CUDA index
+    if devs == {-1}:
         return False
-    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
+    if len(devs) != 1 or not ts[0].is_cuda:
         raise ValueError(f"kernel inputs on mixed devices: {[str(t.device) for t in ts]}")
     return True
 
@@ -306,24 +306,79 @@ def att_field_plain(pos, grad, use, search_range: int, rows: int, cols: int, sca
     return att_flood_plain(stack, sr, frows, fcols, scale)
 
 
+# csrc/nn_flood.cu's instantiations: (rows per thread, most threads per CTA)
+NN_RT = ((4, 1024), (8, 768), (16, 384), (32, 768))
+NN_SMEM_MAX = 232448         # shared memory a block can use on the H100 (227 KB)
+NN_CLUSTERS = (16, 8)        # cluster sizes tried, in order (16 is non-portable)
+_NN_PLANS = {}               # (rows, cols, K, device index) -> (C, R, T, rt, pos_smem, smem)
+NN_PLAN_INFO = {}            # (rows, cols, K) -> the plan and each size's occupancy answer
+
+
+def nn_cluster_plan(rows: int, cols: int, K: int, C: int):
+    """csrc/nn_flood.cu's layout of a ``rows x cols`` field of ``K``
+    keylines on one cluster of ``C`` CTAs: (R rows per CTA, the last CTAs
+    owning fewer; T threads, H = T / ceil32(cols) to a column; rt rows a
+    thread, the kernel's count; pos_smem, whether the keyline table is
+    copied into each CTA's shared memory; the dynamic shared memory: two id
+    buffers of R*cols int32, two row tables, the table where it fits), or
+    None where the ids do not fit.  The most threads that fit win: a pass
+    is bound by latency on the cluster's 16 SMs."""
+    R = -(-rows // C)
+    Tc = -(-cols // 32) * 32
+    ids = 8 * R * cols + 8 * rows
+    for rt, tmax in NN_RT:
+        T = Tc * -(-R // rt)
+        if T <= tmax and ids <= NN_SMEM_MAX:
+            pos_smem = ids + 8 * K <= NN_SMEM_MAX
+            return R, T, rt, pos_smem, ids + 8 * K * pos_smem
+    return None
+
+
+def _nn_plan(lib, rows: int, cols: int, K: int, dev: torch.device):
+    """The cluster size and layout for this field on ``dev``: the first of
+    NN_CLUSTERS whose plan fits and that cudaOccupancyMaxActiveClusters
+    accepts, queried once per shape and device.  Raises where none does."""
+    key = (rows, cols, K, dev.index)
+    if key not in _NN_PLANS:
+        tried = {}
+        with torch.cuda.device(dev):
+            for C in NN_CLUSTERS:
+                plan = nn_cluster_plan(rows, cols, K, C)
+                n = lib.rk_nn_cluster_occupancy(C, *plan[1:]) if plan else 0
+                if n < 0:
+                    raise RuntimeError(f"nn_field: the cluster occupancy query failed with "
+                                       f"cudaError {-n}")
+                tried[C] = n
+                if n >= 1:
+                    _NN_PLANS[key] = (C, *plan)
+                    NN_PLAN_INFO[key[:3]] = dict(
+                        zip(("C", "R", "T", "rt", "pos_smem", "smem"), _NN_PLANS[key]),
+                        max_active_clusters=tried)
+                    break
+        if key not in _NN_PLANS:
+            raise ValueError(f"nn_field: the ids of a {rows}x{cols} field ({8 * rows * cols} "
+                             f"bytes in two buffers) fit no cluster of {NN_CLUSTERS} CTAs "
+                             f"(clusters that can run at once: {tried})")
+    return _NN_PLANS[key]
+
+
 def nn_field(pos, use, search_range: int, rows: int, cols: int) -> torch.Tensor:
-    """Nearest-keyline id field (csrc/seed_scatter.cu, then csrc/nn_flood.cu):
-    ``[rows*cols]`` int32 ids, -1 beyond ``search_range``.  ``pos`` [K, 2],
-    ``search_range``, ``rows`` and ``cols`` are all in field units (the
-    caller scales the positions)."""
+    """Nearest-keyline id field (csrc/seed_scatter.cu's winner plane, then
+    csrc/nn_flood.cu: one cluster launch whose ids stay in distributed shared
+    memory): ``[rows*cols]`` int32 ids, -1 beyond ``search_range``.  ``pos``
+    [K, 2], ``search_range``, ``rows`` and ``cols`` are all in field units
+    (the caller scales the positions).  A field whose ids do not fit one
+    cluster's shared memory raises."""
     if not _on_cuda(pos, use):
         return nn_field_plain(pos, use, search_range, rows, cols)
     _check_table(pos, None, use, "nn_field")
-    n = rows * cols
-    dev = pos.device
     lib = _build.load()
+    K = pos.shape[0]
+    plan = _nn_plan(lib, rows, cols, K, pos.device)
     winner = _seed_winner(lib, pos, use, rows, cols, 1.0)
-    sid = torch.empty((2, n), dtype=i32, device=dev)
-    fst = torch.empty((2, 3 * n), dtype=f32, device=dev)
-    out = torch.empty((n,), dtype=i32, device=dev)
-    err = lib.rk_nn_flood(_ptr(pos), _ptr(winner), _ptr(sid[0]), _ptr(fst[0]), _ptr(sid[1]),
-                          _ptr(fst[1]), _ptr(out), rows, cols, int(search_range),
-                          _stream(pos))
+    out = torch.empty((rows * cols,), dtype=i32, device=pos.device)
+    err = lib.rk_nn_cluster(_ptr(pos), _ptr(winner), _ptr(out), K, rows, cols,
+                            int(search_range), *plan, _stream(pos))
     _raise_on(err, "nn_field")
     LAUNCHES["nn_field"] += 1
     return out
@@ -645,7 +700,8 @@ def tube_match_plain(kl, att, dyn, M2, g: TubeGeom) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# K5: regularization + depth EKF
+# K5: the depth stage -- regularization + depth EKF, and on the step's path
+# with the tube matcher's tail and the failure gate in the same call
 
 
 class RegEkfParams(NamedTuple):
@@ -655,32 +711,149 @@ class RegEkfParams(NamedTuple):
     fm: float
 
 
+class MatchRegEkfParams(NamedTuple):
+    """The fused stage's constants: the depth update's, then the tail's
+    principal point and the gate's match-count threshold."""
+
+    threshold: float
+    q_abs2: float
+    pu2: float
+    fm: float
+    cx: float
+    cy: float
+    min_matches: int   # CoreConfig.global_min_matches_threshold
+
+
+# the eight map planes the fused stage writes, in its output order
+MATCH_PLANES = ("rho", "sigma_rho", "match_id", "matches", "match_pos_img", "match_grad",
+                "match_grad_norm", "match_id_keyframe")
+_MRE_THREADS = 128      # csrc/reg_ekf.cu kThreads: one keyline a thread
+_MRE_NAMES = ("rho", "sigma_rho", "grad", "grad_norm", "id_next", "id_prev", "valid",
+              "match_id", "pos_img", "match_pos_img", "match_grad", "match_grad_norm", "vel",
+              "tube_out", "matches", "match_id_keyframe", "R_tot", "fail_nan")
+_MRE_SLOTS = 29         # csrc/reg_ekf.cu N_SLOTS: the 18 inputs above, then the outputs
+
+
+@functools.lru_cache(maxsize=None)
+def _mre_specs(K: int):
+    """(dtype, shape) of each of _MRE_NAMES at K keylines."""
+    f, f2, i = (f32, (K,)), (f32, (K, 2)), (i32, (K,))
+    return (f, f, f2, f, i, i, (torch.bool, (K,)), i, f2, f2, f2, f, (f32, (3,)),
+            (f32, (12, K)), i, i, (f32, (3, 3)), (torch.bool, ()))
+
+
+def _check_mre(ts, specs):
+    """One pass over the inputs; the per-tensor messages only on a mismatch."""
+    if tuple((t.dtype, t.shape) for t in ts) == specs and all(t.is_contiguous() for t in ts):
+        return
+    for t, (dtype, shape), what in zip(ts, specs, _MRE_NAMES):
+        _check(t, dtype, shape, f"match_reg_ekf {what}")
+
+
 def reg_ekf(rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, match_id,
             pos_img, match_pos_img, match_grad, match_grad_norm, vel, p: RegEkfParams):
-    """regularize_1iter then the inverse-depth EKF (csrc/reg_ekf.cu).
-    Returns (rho, sigma_rho)."""
+    """regularize_1iter then the inverse-depth EKF.  Returns (rho,
+    sigma_rho).  On the card it is match_reg_ekf with nothing found (K4's
+    output all zero), fail_nan false and min_matches 0: the tail writes
+    nothing and the gate passes."""
     ins = (rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, match_id,
            pos_img, match_pos_img, match_grad, match_grad_norm, vel)
     if not _on_cuda(*ins):
         return reg_ekf_plain(*ins, p)
+    K, dev = rho.shape[0], rho.device
+    # match_id stands in for the two id planes the tail would copy
+    out = match_reg_ekf(torch.zeros((12, K), dtype=f32, device=dev), rho, sigma_rho, grad,
+                        grad_norm, id_next, id_prev, valid, match_id, match_id, match_id,
+                        pos_img, match_pos_img, match_grad, match_grad_norm, vel,
+                        torch.eye(3, dtype=f32, device=dev),
+                        torch.zeros((), dtype=torch.bool, device=dev),
+                        MatchRegEkfParams(*p, cx=0.0, cy=0.0, min_matches=0))
+    return out[0], out[1]
+
+
+def match_reg_ekf(tube_out, rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, match_id,
+                  matches, match_id_keyframe, pos_img, match_pos_img, match_grad,
+                  match_grad_norm, vel, R_tot, fail_nan, p: MatchRegEkfParams):
+    """The step's depth stage as csrc/reg_ekf.cu (one call, two launches:
+    the count, then the rest):
+    K4's winners (``tube_out`` [12, K], TUBE_OUT) written into the new map's
+    planes, the found count klm, the gate (``fail_nan`` [] bool on the
+    device: the unmatched map and klm 0; failed = fail_nan or klm <
+    min_matches), then regularization and the depth EKF on the matched map
+    where not failed.  ``R_tot`` [3, 3] takes the winner's seed to the new
+    frame.  Returns (the MATCH_PLANES, klm [] int32, failed [] bool), all on
+    the device: nothing is read back."""
+    ins = (rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, match_id, pos_img,
+           match_pos_img, match_grad, match_grad_norm, vel, tube_out, matches,
+           match_id_keyframe, R_tot, fail_nan)
+    if not _on_cuda(*ins):
+        return match_reg_ekf_plain(tube_out, rho, sigma_rho, grad, grad_norm, id_next, id_prev,
+                                   valid, match_id, matches, match_id_keyframe, pos_img,
+                                   match_pos_img, match_grad, match_grad_norm, vel, R_tot,
+                                   fail_nan, p)
     K = rho.shape[0]
-    for t, dtype, shape, name in (
-            (rho, f32, (K,), "rho"), (sigma_rho, f32, (K,), "sigma_rho"),
-            (grad, f32, (K, 2), "grad"), (grad_norm, f32, (K,), "grad_norm"),
-            (id_next, i32, (K,), "id_next"), (id_prev, i32, (K,), "id_prev"),
-            (valid, torch.bool, (K,), "valid"), (match_id, i32, (K,), "match_id"),
-            (pos_img, f32, (K, 2), "pos_img"), (match_pos_img, f32, (K, 2), "match_pos_img"),
-            (match_grad, f32, (K, 2), "match_grad"),
-            (match_grad_norm, f32, (K,), "match_grad_norm"), (vel, f32, (3,), "vel")):
-        _check(t, dtype, shape, "reg_ekf " + name)
-    lib = _build.load()
-    rho_out = torch.empty_like(rho)
-    sr_out = torch.empty_like(sigma_rho)
-    err = lib.rk_reg_ekf(*(_ptr(t) for t in ins), K, p.threshold, p.q_abs2, p.pu2, p.fm,
-                         _ptr(rho_out), _ptr(sr_out), _stream(rho))
-    _raise_on(err, "reg_ekf")
+    _check_mre(ins, _mre_specs(K))
+    dev = rho.device
+    fo = torch.empty((7 * K,), dtype=f32, device=dev)
+    io = torch.empty((3 * K + 1 + -(-K // _MRE_THREADS),), dtype=i32, device=dev)
+    failed = torch.empty((), dtype=torch.bool, device=dev)
+    rho_o, sr_o, mgn_o = fo[:K], fo[K:2 * K], fo[2 * K:3 * K]
+    mpos_o, mgrad_o = fo[3 * K:5 * K].view(K, 2), fo[5 * K:].view(K, 2)
+    mid_o, matches_o, mkf_o, klm = io[:K], io[K:2 * K], io[2 * K:3 * K], io[3 * K]
+    outs = (rho_o, sr_o, mid_o, matches_o, mpos_o, mgrad_o, mgn_o, mkf_o, klm, failed,
+            io[3 * K + 1:])
+    ptrs = [t.data_ptr() for t in ins + outs]
+    err = _build.load().rk_match_reg_ekf((ctypes.c_void_p * _MRE_SLOTS)(*ptrs), K,
+                                         p.min_matches, p.threshold, p.q_abs2, p.pu2, p.fm,
+                                         p.cx, p.cy, _stream(rho))
+    _raise_on(err, "match_reg_ekf")
     LAUNCHES["reg_ekf"] += 1
-    return rho_out, sr_out
+    return rho_o, sr_o, mid_o, matches_o, mpos_o, mgrad_o, mgn_o, mkf_o, klm, failed
+
+
+def match_tail_plain(tube_out, rho, sigma_rho, match_id, matches, match_pos_img, match_grad,
+                     match_grad_norm, match_id_keyframe, R_tot, fm: float, cx: float,
+                     cy: float):
+    """The tube matcher's write-back (directed_match_tube's tail): found
+    keylines take the winner's depth, id, match count + 1, gradient and
+    keyframe id, and as match position the winner's seed through ``R_tot``
+    and the perspective divide (the 3x3 product summed in a fixed order, as
+    csrc/reg_ekf.cu does).  Returns (the MATCH_PLANES, klm [] int32)."""
+    o = tube_out
+    found = o[0] > 0.5
+    fmt = _full(o[7], fm)
+    vx = (o[7] - cx) / fmt
+    vy = (o[8] - cy) / fmt
+    p0x = (vx * R_tot[0, 0] + vy * R_tot[0, 1]) + R_tot[0, 2]
+    p0y = (vx * R_tot[1, 0] + vy * R_tot[1, 1]) + R_tot[1, 2]
+    p0z = (vx * R_tot[2, 0] + vy * R_tot[2, 1]) + R_tot[2, 2]
+    sc = fmt / torch.where(p0z != 0, p0z, 1e-20)
+    fv = found[:, None]
+    planes = (torch.where(found, o[2], rho), torch.where(found, o[3], sigma_rho),
+              torch.where(found, o[1].to(i32), match_id),
+              torch.where(found, o[9].to(i32) + 1, matches),
+              torch.where(fv, torch.stack([p0x * sc, p0y * sc], dim=-1), match_pos_img),
+              torch.where(fv, torch.stack([o[4], o[5]], dim=-1), match_grad),
+              torch.where(found, o[6], match_grad_norm),
+              torch.where(found, o[10].to(i32), match_id_keyframe))
+    return planes, found.sum().to(i32)
+
+
+def match_reg_ekf_plain(tube_out, rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid,
+                        match_id, matches, match_id_keyframe, pos_img, match_pos_img, match_grad,
+                        match_grad_norm, vel, R_tot, fail_nan, p: MatchRegEkfParams):
+    """match_tail_plain, the gate and reg_ekf_plain as the JAX step composes
+    them (rebvio_tpu/pipeline.py:241-250): every result is a select."""
+    new = (rho, sigma_rho, match_id, matches, match_pos_img, match_grad, match_grad_norm,
+           match_id_keyframe)
+    matched, klm = match_tail_plain(tube_out, *new, R_tot, p.fm, p.cx, p.cy)
+    post = tuple(torch.where(fail_nan, a, b) for a, b in zip(new, matched))
+    klm = torch.where(fail_nan, torch.zeros_like(klm), klm)
+    failed = fail_nan | (klm < p.min_matches)
+    r, s = reg_ekf_plain(post[0], post[1], grad, grad_norm, id_next, id_prev, valid, post[2],
+                         pos_img, post[4], post[5], post[6], vel, RegEkfParams(*p[:4]))
+    return (torch.where(failed, post[0], r), torch.where(failed, post[1], s), *post[2:], klm,
+            failed)
 
 
 def reg_ekf_plain(rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, match_id,

@@ -10,9 +10,11 @@ keyline table) and the dense-seeded flood (kernel K1 fed by
 Prints one line per function in microseconds per call: the mean over a run
 of calls between two CUDA events (device time plus launch gaps, the host's
 enqueue hidden when the device is the slower side), the host's wall time
-per call of the same run, and the device time per call (the sum of the
-kernels' and copies' own durations under ``torch.profiler`` over a shorter
-run).  Needs a GPU; the card's name and power limit are printed first.  The counterpart of the JAX package's ``tools/jfa_ab.py``.
+per call of the same run, the device time per call (the sum of the kernels'
+and copies' own durations under ``torch.profiler`` over a shorter run) and
+the device activities (kernels, copies, fills) per call.  Needs a GPU; the
+card's name and power limit are printed first.  The counterpart of the JAX
+package's ``tools/jfa_ab.py``.
 """
 
 from __future__ import annotations
@@ -51,18 +53,18 @@ def time_us(fn, calls: int = CALLS, warm: int = WARM):
     return a.elapsed_time(b) * 1e3 / calls, wall * 1e6 / calls
 
 
-def device_us(fn, calls: int = PROFILED) -> float:
-    """Device time per call in microseconds: the durations of all device
-    activities of ``calls`` calls under torch.profiler, summed."""
+def device_us(fn, calls: int = PROFILED):
+    """(device microseconds, device activities) per call: the durations of
+    the device activities of ``calls`` calls under torch.profiler, summed."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / calls
+    ev = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(ev) / calls, len(ev) / calls
 
 
 def main() -> dict:
@@ -95,10 +97,10 @@ def main() -> dict:
     out = {}
     for name, fn in fields.items():
         ev_us, wall_us = time_us(fn)
-        dev_us = device_us(fn)
-        out[name] = (ev_us, wall_us, dev_us)
+        dev_us, acts = device_us(fn)
+        out[name] = (ev_us, wall_us, dev_us, acts)
         print(f"{name:46s}: {ev_us:8.1f} us/call between events, {wall_us:8.1f} us/call host, "
-              f"{dev_us:8.1f} us/call on the device")
+              f"{dev_us:8.1f} us/call on the device, {acts:.1f} device activities/call")
     return out
 
 

@@ -1,7 +1,8 @@
 """The port's fused LM solve (kernels.minimize_vel, kernel K2's plain version
-on the CPU) and its Cholesky inverse against the JAX package, and a source
-check that the step's modules never read a tensor back to the host (nor
-index the field seeding by a boolean mask)."""
+on the CPU) and its Cholesky inverse against the JAX package, and source
+checks that the step's modules never read a tensor back to the host (nor
+index the field seeding by a boolean mask, nor upload Python scalars in the
+matcher and the rotation helpers)."""
 
 from __future__ import annotations
 
@@ -157,6 +158,35 @@ def test_host_read_detector_sees_them():
     assert sorted(a for _, a in _host_reads(ast.parse(src))) == [
         "cpu", "item", 'to("cpu")', "tolist"]
     assert STEP_SOURCES and "geometry/linalg.py" in STEP_SOURCES
+
+
+# the modules whose per-frame constants no longer go to the device as
+# torch.tensor of Python scalars (ops/edge_detect.py still does: ROADMAP)
+NO_SCALAR_UPLOADS = ("ops/matching.py", "geometry/so3.py")
+
+
+def _scalar_uploads(tree):
+    """``torch.tensor`` of a list, tuple or number literal: on a device each
+    call is a host-to-device copy from pageable memory, a host sync."""
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "tensor" and isinstance(node.func.value, ast.Name)
+                and node.func.value.id == "torch" and node.args
+                and isinstance(node.args[0], (ast.List, ast.Tuple, ast.Constant))):
+            yield node.lineno
+
+
+@pytest.mark.parametrize("rel", NO_SCALAR_UPLOADS)
+def test_step_modules_never_upload_scalars(rel):
+    found = list(_scalar_uploads(ast.parse((PORT / rel).read_text())))
+    assert not found, f"{rel}: torch.tensor of Python scalars at lines {found}"
+
+
+def test_scalar_upload_detector_sees_them():
+    src = ("def f(cx, cy, d, x):\n    a = torch.tensor([cx, cy], device=d)\n"
+           "    b = torch.tensor(2.0, device=d)\n    c = torch.tensor((cx, 1.0))\n"
+           "    return a, b, c, torch.tensor(x), torch.as_tensor(x)\n")
+    assert sorted(_scalar_uploads(ast.parse(src))) == [2, 3, 4]
 
 
 MASK_NAMES = ("win", "mask")
