@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU at the EuRoC parity
 profile (752x480, 16000 keylines, 8 tube probes): the vision-only VO step,
-the VIO step (IMU, gyro-bias fusion, SAB filter, undistortion), the
+the VIO step (IMU, gyro-bias fusion, SAB filter, undistortion), both
+through the streaming runner as one CUDA graph a frame, the
 loop-closure / pose-graph back end on the VIO run's keyframe maps, and the
 field timing tool.
 
@@ -36,17 +37,26 @@ Phases (any failure exits non-zero):
      the frame pair with the counters set to 0 before it.  att_flood,
      att_field, tube_match and nn_field must equal their plain versions bit
      for bit on every plane, reg_ekf on its ids, counters, klm and failed;
-  3. VO slice: VioRunner(undistort=False) over 24 synthetic frames, with the
-     launch counters set to 0 just before and read just after, the
+  3. VO slice: VioRunner(undistort=False) over 24 synthetic frames in three
+     modes on the same stream: eager (graph=False), one CUDA graph a frame
+     (the main path: undistortion or the cast and gain plus the step,
+     captured once and replayed, fed from the pinned staging ring with frame
+     i+1 uploaded before step i) and VO_CHUNK frames a graph
+     (run(chunk=...), the tail frames a graph each); the graphed runs must
+     equal the eager run bit for bit with the same launch counts; counters
+     set to 0 just before each run and read just after; the graph's
      trajectory held against the committed JAX golden
      (tests/data/torch_golden_vo_euroc_seed0_24.txt);
   4. VIO slice: VioRunner(PipelineConfig(), undistort=True) over the 120
-     distorted frames of the seed-0 reference-anchor stream, counters as in
-     3, held against the committed JAX golden
-     (tests/data/torch_golden_vio_euroc_seed0_120.txt) and the reference
-     binary's golden (tests/data/anchor_ref_trajectory_seed0_120.txt); a
-     KeyframeMapBuilder (a keyframe every 5 frames, maps stored on the card)
-     rides along, fed per frame;
+     distorted frames of the seed-0 reference-anchor stream in the same three
+     modes (VIO_CHUNK frames a graph), then the graphed runner again with a
+     KeyframeMapBuilder (a keyframe every 5 frames, maps copied and stored on
+     the card) fed per frame, bit-identical to the eager run, held against
+     the committed JAX golden (tests/data/torch_golden_vio_euroc_seed0_120.txt)
+     and the reference binary's golden
+     (tests/data/anchor_ref_trajectory_seed0_120.txt); run_realtime at the
+     sensor rate (no frame dropped); the eager step over NO_SYNC frames under
+     torch.cuda.set_sync_debug_mode("error");
   5. loop closure: over keyframes 12..23 of the run's 24, an 8 deg yaw drift
      is injected from the sixth of them on, then build_graph_from_run (coarse rotation
      sweep, tracker registration against the scatter-seeded field) and 15
@@ -56,7 +66,13 @@ Phases (any failure exits non-zero):
      and nn_field against their plain versions on a stored keyframe map and
      minimize_vel against its plain version on one candidate pair;
   6. field tool: python -m rebvio_tpu_torch.tools.jfa_ab's main (nn_field,
-     att_field and att_flood timed at the fast profile), counters as in 3.
+     att_field and att_flood timed at the fast profile), counters as in 3;
+  7. the reference binary's other goldens through the graphed runner
+     (tests/test_reference_anchor.py's bounds): seed 1, rot18, seed 0 over
+     300 frames, noise (seed 2) and blur (seed 3) at the parity profile;
+     configs.fast_profile() over 60 frames of seed 0, noise and blur, with
+     the degraded streams' least match count.  The streams are made in
+     worker processes from the start of the run.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -76,6 +92,9 @@ REF_GOLDEN = REPO / "tests" / "data" / "anchor_ref_trajectory_seed0_120.txt"
 LC_GOLDEN = REPO / "tests" / "data" / "torch_golden_lc_euroc_seed0_120.json"
 N_FRAMES = 24
 N_VIO = 120
+VO_CHUNK = 5        # 24 frames: four graphs of 5, then 4 tail frames a graph each
+VIO_CHUNK = 8       # 120 frames: fifteen graphs of 8
+NO_SYNC = 20        # eager VIO frames under set_sync_debug_mode("error")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 peak outside the tensor cores
 # Bounds against the JAX golden, sized from the spread between the JAX
@@ -111,6 +130,29 @@ LC_KW = dict(min_gap=6, radius=10.0, w_loop=2.0, coarse_sweep_deg=8.0, coarse_st
 # 0.195 deg
 LC_BOUNDS = dict(pairs_missing=0, nfm_rel=0.45, angle_deg=7.7, kept_flips=1,
                  cost_before_rel=0.01, cost_after_rel=0.7, rot_err_deg=0.4)
+# The reference binary's other goldens (tests/test_reference_anchor.py:53-68):
+# (name, golden, generate() kwargs, frames, sim3 cross-ATE bound); ATE against
+# ground truth no worse than the reference's + REF_GT_MARGIN_M (:129-136).
+# Seed 0 over 120 frames is phase 4's.
+ANCHORS = [
+    ("seed1", "anchor_ref_trajectory_seed1_120.txt", dict(seed=1), 120, 0.08),
+    ("rot18", "anchor_ref_trajectory_rot18_seed0_120.txt",
+     dict(seed=0, speed=0.3, yaw_amp=0.18), 120, 0.07),
+    ("seed0_300", "anchor_ref_trajectory_seed0_300.txt", dict(seed=0), 300, 0.09),
+    ("noise", "anchor_ref_trajectory_noise_seed2_120.txt", dict(seed=2, degrade="noise"), 120,
+     0.09),
+    ("blur", "anchor_ref_trajectory_blur_seed3_120.txt", dict(seed=3, degrade="blur"), 120, 0.08),
+]
+# configs.fast_profile() over the first 60 frames (:80-107, :139-166): (name,
+# the stream it takes its prefix from, golden, sim3 cross-ATE bound, least
+# num_matches from frame 2 on or None); ATE no worse than the reference's + 0.1
+FAST_N = 60
+FAST_GT_MARGIN_M = 0.1
+FAST_ANCHORS = [
+    ("seed0", "vio", "anchor_ref_trajectory_seed0_120.txt", 0.09, None),
+    ("noise", "noise", "anchor_ref_trajectory_noise_seed2_120.txt", 0.07, 1500),
+    ("blur", "blur", "anchor_ref_trajectory_blur_seed3_120.txt", 0.06, 1500),
+]
 REPLACES = {
     "att_flood": "rebvio_tpu/ops/pallas_kernels.py:206",
     "try_vel": "rebvio_tpu/ops/pallas_kernels.py:314",
@@ -168,6 +210,76 @@ MV_TOL = dict(vel_abs=1e-5, vel_rel=1e-3, gram_rel=1e-4, score_rel=1e-4, res_abs
 # rounding of the two sqrt / division implementations (1e-6 relative to the
 # inverse's largest entry is allowed; 0 is expected), NaN in the same places
 CHOL_TOL_REL = 1e-6
+
+
+def anchor_stream(kw: dict, n: int):
+    """One anchor stream (tests/test_reference_anchor.py's ``_gen``), made in a
+    worker process while the card runs the phases before it."""
+    sys.path.insert(0, str(REPO))
+    from rebvio_tpu_torch.configs import CameraConfig
+    from rebvio_tpu_torch.data import synthetic
+
+    kw = dict(kw)
+    if "degrade" in kw:
+        kw["degrade"] = synthetic.DEGRADE_PRESETS[kw["degrade"]]
+    return synthetic.generate(CameraConfig(), n_frames=n, distort=True, imu_preroll_s=0.1, **kw)
+
+
+def anchor_check(np, ev, res, sq, golden_name: str, n: int):
+    """(sim3 cross-ATE against the reference binary's golden, ATE against
+    ground truth, the reference's ATE against ground truth) over frames
+    1..n-1 (the reference emits no frame 0)."""
+    ref = np.loadtxt(REPO / "tests" / "data" / golden_name)[: n - 1, 4:7]
+    mine, gt = res.position[1:n], sq.gt_pos[1:n]
+    return ev.ate_rmse(mine, ref), ev.ate_rmse(mine, gt), ev.ate_rmse(ref, gt)
+
+
+def same_run(np, a, b) -> bool:
+    """Two RunResults equal bit for bit."""
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("ts_us", "orientation", "position", "num_matches", "run_ok"))
+
+
+def drive_modes(torch, np, kernels, VioRunner, cfg, sq, undistort: bool, label: str,
+                chunk: int):
+    """The slice through ``VioRunner.run`` in three modes on one stream:
+    eager (``graph=False``, the reference), one CUDA graph a frame (the main
+    path) and ``chunk`` frames a graph.  Each runner is warmed up first (the
+    build, the caches, the graphs' capture: the chunk runner's warm-up covers
+    a chunk and one tail frame) and reset; the counters are set to 0 just
+    before each run and read just after.  The graphed runs must equal the
+    eager one bit for bit (trajectory, num_matches, run_ok, final K and
+    g_est) with the same launch counts.  Returns a dict (each mode's
+    RunResult, ms/frame and final (K, g_est); the graph run's launches) or
+    an error message."""
+    out, counts = {}, {}
+    for mode, graph, ch in (("eager", False, 0), ("graph", True, 0), ("chunk", True, chunk)):
+        r = VioRunner(cfg, undistort=undistort, device="cuda", graph=graph)
+        r.run(prefix(sq, ch + 1 if ch else 1), chunk=ch)
+        r.reset()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out[mode] = r.run(sq, chunk=ch)        # ends in the one readback
+        out[mode + "_ms"] = (time.perf_counter() - t0) / len(sq.images) * 1e3
+        counts[mode] = dict(kernels.LAUNCHES)
+        out[mode + "_state"] = (float(r.state.K), r.state.sab_state.g_est.cpu().numpy())
+    same = {m: same_run(np, out[m], out["eager"])
+            and out[m + "_state"][0] == out["eager_state"][0]
+            and np.array_equal(out[m + "_state"][1], out["eager_state"][1])
+            for m in ("graph", "chunk")}
+    print(json.dumps({"check": f"{label}: VioRunner eager vs graph vs {chunk} frames a graph",
+                      "frames": len(sq.images), "ms_per_frame_eager": out["eager_ms"],
+                      "ms_per_frame_graph": out["graph_ms"],
+                      "ms_per_frame_chunk": out["chunk_ms"],
+                      "bit_identical_to_eager": same, "launches": counts}), flush=True)
+    for m in ("graph", "chunk"):
+        if not same[m]:
+            return f"{label}: the {m} run differs from the eager run"
+        if counts[m] != counts["eager"]:
+            return f"{label}: {m} launch counts {counts[m]} differ from eager {counts['eager']}"
+    out["launches"], out["ms"] = counts["graph"], out["graph_ms"]
+    return out
 
 
 def prefix(sq, n: int):
@@ -341,9 +453,23 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
+    import multiprocessing as mp
 
+    # phase 7's streams are made on the host's other cores meanwhile
+    pool = mp.get_context("spawn").Pool(len(ANCHORS))
+    try:
+        jobs = {name: pool.apply_async(anchor_stream, (kw, n)) for name, _, kw, n, _ in ANCHORS}
+        return smoke(np, torch, jobs)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def smoke(np, torch, jobs) -> int:
+    """The phases of the module docstring; ``jobs``: phase 7's streams, being
+    made in worker processes."""
     from rebvio_tpu_torch import eval as ev
-    from rebvio_tpu_torch.configs import CameraConfig, PipelineConfig
+    from rebvio_tpu_torch.configs import CameraConfig, PipelineConfig, fast_profile
     from rebvio_tpu_torch.data import synthetic
     from rebvio_tpu_torch.ops import _build, kernels
     from rebvio_tpu_torch.ops import distance_field as DF
@@ -415,14 +541,23 @@ def main() -> int:
             setattr(kernels, name, recorder(name))
         tracker.minimize_vel, linalg.chol_inverse = recording_solve, recording_chol
         DF.seed_stack_dense, matching.match_and_update_depth = recording_seed, recording_stage
+        n_solve, n_stage = len(solve_maps), len(stage_calls)
+        n_calls = {name: len(captured.get(name, [])) for name in names}
         try:
-            r = VioRunner(run_cfg, undistort=undistort, device="cuda")
+            r = VioRunner(run_cfg, undistort=undistort, device="cuda", graph=False)
             r.run(prefix(sq, n))
         finally:
             for name in names:
                 setattr(kernels, name, originals[name])
             tracker.minimize_vel, linalg.chol_inverse = plain_solve, plain_chol
             DF.seed_stack_dense, matching.match_and_update_depth = plain_seed, plain_stage
+        # the estimate also runs on frame 0 (on an empty map; its result is
+        # selected away, as in JAX): drop that call, so that call i of the
+        # estimate's kernels is frame i + 1
+        for name in names:
+            if name != "att_flood":
+                del captured[name][n_calls[name]]
+        del solve_maps[n_solve], stage_calls[n_stage]
         return r
 
     vo_names = [n for n in step_names if n != "estimate_bias"]
@@ -791,37 +926,30 @@ def main() -> int:
     if not (np.isfinite(scan).all() and scan[4] < scan[0]):
         return fail(f"the score at the solve's velocity is not below the start's: {scan}")
 
-    # ---------------- phase 3: the slice, 24 frames on the card
-    runner = VioRunner(cfg, undistort=False, device="cuda")
-    runner.process_frame(seq.images[0], int(seq.ts_us[0]), seq.imu_ts_us[:0],
-                         seq.imu_gyro[:0], seq.imu_acc[:0])       # warm-up frame
-    runner.reset()
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    res = runner.run(seq)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    ms_per_frame = wall / N_FRAMES * 1e3
-
+    # ---------------- phase 3: the VO slice, 24 frames on the card: eager,
+    # then as one CUDA graph a frame (the main path), then VO_CHUNK frames a graph
+    vo = drive_modes(torch, np, kernels, VioRunner, cfg, seq, undistort=False, label="VO",
+                     chunk=VO_CHUNK)
+    if isinstance(vo, str):
+        return fail(vo)
+    res, launches = vo["graph"], vo["launches"]
+    # one launch per LM solve (it was 1 + iterations try_vel launches), one
+    # Cholesky inverse per frame (the refinement's covariance); the estimate
+    # runs on every frame, its result selected on the device
+    want = {"att_flood": N_FRAMES, "try_vel": 0, "minimize_vel": N_FRAMES,
+            "tube_match": N_FRAMES, "reg_ekf": N_FRAMES, "estimate_bias": 0, "att_field": 0,
+            "nn_field": 0, "chol_inverse": N_FRAMES}
+    if launches != want:
+        return fail(f"launch counts {launches}, expected {want}")
     if res.position.shape != (N_FRAMES, 3) or not np.isfinite(res.position).all():
         return fail("trajectory is not finite or has the wrong shape")
     if not res.run_ok.all():
         return fail(f"run_ok dropped at frame {int(np.argmin(res.run_ok))}")
-    est = N_FRAMES - 1
-    # one launch per LM solve (it was 1 + iterations try_vel launches), one
-    # Cholesky inverse per frame (the refinement's covariance)
-    want = {"att_flood": N_FRAMES, "try_vel": 0, "minimize_vel": est,
-            "tube_match": est, "reg_ekf": est, "estimate_bias": 0, "att_field": 0,
-            "nn_field": 0, "chol_inverse": est}
-    if launches != want:
-        return fail(f"launch counts {launches}, expected {want}")
     g = np.loadtxt(GOLDEN)
     ate = ev.ate_rmse(res.position, g[:, 4:7])
     rel = np.abs(res.num_matches[1:] - g[1:, 7]) / g[1:, 7]
-    print(json.dumps({"slice": "vo parity 752x480 K=16000 P=8", "frames": N_FRAMES,
-                      "ms_per_frame": ms_per_frame, "card": card,
+    print(json.dumps({"slice": "vo parity 752x480 K=16000 P=8, graphed runner",
+                      "frames": N_FRAMES, "ms_per_frame": vo["ms"], "card": card,
                       "cross_ate_sim3_m": ate, "ate_bound_m": ATE_BOUND_M,
                       "max_match_rel_diff": float(rel.max()), "match_rtol": MATCH_RTOL,
                       "num_matches": res.num_matches.tolist(), "launches": launches}),
@@ -832,13 +960,18 @@ def main() -> int:
         return fail(f"num_matches off the JAX golden by {rel.max():.3%}")
 
     # ---------------- phase 4: the VIO slice, 120 frames on the card
+    vmodes = drive_modes(torch, np, kernels, VioRunner, vcfg, vseq, undistort=True,
+                         label="VIO", chunk=VIO_CHUNK)
+    if isinstance(vmodes, str):
+        return fail(vmodes)
+    # the graphed runner again, with the keyframe map accumulator riding along:
+    # fed per frame (four [K] fields and the pose copied to the host each
+    # frame), maps copied and stored on the card
     runner = VioRunner(vcfg, undistort=True, device="cuda")
     runner.process_frame(vseq.images[0], int(vseq.ts_us[0]), vseq.imu_ts_us[:0],
-                         vseq.imu_gyro[:0], vseq.imu_acc[:0])      # warm-up frame
+                         vseq.imu_gyro[:0], vseq.imu_acc[:0])      # warm-up frame: the capture
     runner.reset()
     torch.cuda.synchronize()
-    # the keyframe map accumulator rides along: fed per frame (four [K] fields and the
-    # pose copied to the host each frame), maps stored on the card
     mapper = KeyframeMapBuilder(vcfg, kf_every=LC_KF_EVERY, store_maps=True,
                                 kf_phase=LC_KF_EVERY - 1)
     kernels.reset_launches()
@@ -856,25 +989,30 @@ def main() -> int:
     vlaunches = dict(kernels.LAUNCHES)
     K_fin = float(runner.state.K)
     g_fin = runner.state.sab_state.g_est.cpu().numpy()
+    if not (same_run(np, res, vmodes["eager"]) and (K_fin, g_fin.tolist())
+            == (vmodes["eager_state"][0], vmodes["eager_state"][1].tolist())):
+        return fail("the graphed VIO run with the keyframe mapper differs from the eager run")
 
     if res.position.shape != (N_VIO, 3) or not np.isfinite(res.position).all():
         return fail("VIO trajectory is not finite or has the wrong shape")
     if not res.run_ok.all():
         return fail(f"VIO run_ok dropped at frame {int(np.argmin(res.run_ok))}")
-    est = N_VIO - 1
+    est = N_VIO
     # chol_inverse: gyro-bias fusion, the refinement's covariance, the SAB prior
     want = {"att_flood": N_VIO, "try_vel": 0, "minimize_vel": est,
             "tube_match": est, "reg_ekf": est, "estimate_bias": est, "att_field": 0,
             "nn_field": 0, "chol_inverse": 3 * est}
-    if vlaunches != want:
+    if vlaunches != want or vmodes["launches"] != want:
         return fail(f"VIO launch counts {vlaunches}, expected {want}")
     g, gK, gg = read_vio_golden(VIO_GOLDEN)
     rel = np.abs(res.num_matches[1:] - g[1:, 7]) / g[1:, 7]
     ref = np.loadtxt(REF_GOLDEN)[: N_VIO - 1, 4:7]   # the reference emits frames 1..N-1
     gt = vseq.gt_pos[1:N_VIO]
-    vio = {"slice": "vio parity 752x480 K=16000 P=8 imu sab_iterations=5 undistort, with "
-                    "the keyframe map accumulator fed per frame (its host copies are in ms_per_frame)",
-           "frames": N_VIO, "ms_per_frame": wall / N_VIO * 1e3, "card": card,
+    vio = {"slice": "vio parity 752x480 K=16000 P=8 imu sab_iterations=5 undistort, graphed "
+                    "runner, with the keyframe map accumulator fed per frame (its host copies "
+                    "are in ms_per_frame_with_mapper)",
+           "frames": N_VIO, "ms_per_frame": vmodes["ms"],
+           "ms_per_frame_with_mapper": wall / N_VIO * 1e3, "card": card,
            "cross_ate_sim3_m": ev.ate_rmse(res.position, g[:, 4:7]),
            "cross_ate_rigid_m": ev.ate_rmse(res.position, g[:, 4:7], with_scale=False),
            "max_match_rel_diff": float(rel.max()), "K": K_fin, "K_golden": gK,
@@ -901,6 +1039,44 @@ def main() -> int:
         if not ok:
             return fail(f"VIO slice: {what} out of bounds")
 
+    # the paced mode on the graphed runner: the sensor's 20 Hz, a queue of 2,
+    # at most 3 frames in flight, each fenced on the event after its replay
+    runner.reset()
+    torch.cuda.synchronize()
+    rt = runner.run_realtime(vseq, speed=1.0)
+    rtr = {"slice": "vio realtime, speed 1.0 (20 Hz), queue 2, graphed runner",
+           "processed": rt.processed, "dropped": rt.dropped,
+           "worst_latency_ms": rt.worst_latency_s * 1e3, "card": card}
+    print(json.dumps(rtr), flush=True)
+    if (rt.processed + rt.dropped != N_VIO or rt.dropped != 0
+            or not (np.diff(rt.frame_idx) > 0).all() or not rt.result.run_ok.all()):
+        return fail(f"run_realtime at the sensor rate: {rtr}")
+
+    # the eager VIO step under set_sync_debug_mode("error"): frames 0..NO_SYNC-1,
+    # the SAB filter engaged from frame 16 on; a host sync anywhere raises
+    er = VioRunner(vcfg, undistort=True, device="cuda", graph=False)
+    er.process_frame(vseq.images[0], int(vseq.ts_us[0]), vseq.imu_ts_us[:0],
+                     vseq.imu_gyro[:0], vseq.imu_acc[:0])
+    er.reset()
+    torch.cuda.synchronize()
+    rows = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(NO_SYNC):
+            rows.append(er.process_frame(vseq.images[i], int(vseq.ts_us[i]), vseq.imu_ts_us,
+                                         vseq.imu_gyro, vseq.imu_acc))
+    except RuntimeError as e:
+        return fail(f"the eager VIO step synced the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pos = torch.stack([o.position for o in rows]).cpu().numpy()
+    same = bool(np.array_equal(pos, vmodes["eager"].position[:NO_SYNC]))
+    print(json.dumps({"check": "no host sync: the eager VIO step (VioRunner(graph=False)), "
+                               f"frames 0..{NO_SYNC - 1}, set_sync_debug_mode('error')",
+                      "sab_engaged_from_frame": 6 + vcfg.imu.init_bias_frame_num,
+                      "positions_equal_the_eager_run": same}), flush=True)
+    if not same:
+        return fail("the no-sync eager VIO frames differ from the eager run")
 
     # ---------------- phase 5: loop closure on the VIO run's keyframe maps
     if mapper.n_keyframes() != N_VIO // LC_KF_EVERY or len(mapper.kf_maps) != 24:
@@ -1071,6 +1247,45 @@ def main() -> int:
                       "launches": tl}), flush=True)
     if tl != want:
         return fail(f"field tool launch counts {tl}, expected {want}")
+
+    # ---------------- phase 7: the reference binary's other goldens, through
+    # the graphed runner (one runner a profile, reset between streams)
+    runner = VioRunner(vcfg, undistort=True, device="cuda")
+    streams = {"vio": vseq}
+    anchors_ok = True
+    for name, golden, _kw, n, bound in ANCHORS:
+        t0 = time.perf_counter()
+        sq = streams[name] = jobs[name].get(timeout=900)
+        waited = time.perf_counter() - t0
+        runner.reset()
+        res = runner.run(sq)
+        cross, ate, ref_ate = anchor_check(np, ev, res, sq, golden, n)
+        ok = bool(res.run_ok.all() and cross < bound and ate < ref_ate + REF_GT_MARGIN_M)
+        anchors_ok &= ok
+        print(json.dumps({"anchor": f"parity {name}", "frames": n, "ok": ok,
+                          "cross_ate_sim3_m": cross, "bound_m": bound, "ate_gt_m": ate,
+                          "ref_ate_gt_m": ref_ate, "gt_margin_m": REF_GT_MARGIN_M,
+                          "run_ok_all": bool(res.run_ok.all()),
+                          "min_matches_from_frame_2": int(res.num_matches[2:].min()),
+                          "stream_wait_s": waited}), flush=True)
+    fr = VioRunner(fast_profile(), undistort=True, device="cuda")
+    for name, src, golden, bound, least in FAST_ANCHORS:
+        sq = prefix(streams[src], FAST_N)
+        fr.reset()
+        res = fr.run(sq)
+        cross, ate, ref_ate = anchor_check(np, ev, res, sq, golden, FAST_N)
+        least_seen = int(res.num_matches[2:].min())
+        ok = bool(res.run_ok.all() and cross < bound and ate < ref_ate + FAST_GT_MARGIN_M
+                  and (least is None or least_seen > least))
+        anchors_ok &= ok
+        print(json.dumps({"anchor": f"fast profile {name}", "frames": FAST_N, "ok": ok,
+                          "cross_ate_sim3_m": cross, "bound_m": bound, "ate_gt_m": ate,
+                          "ref_ate_gt_m": ref_ate, "gt_margin_m": FAST_GT_MARGIN_M,
+                          "run_ok_all": bool(res.run_ok.all()),
+                          "min_matches_from_frame_2": least_seen, "least_matches": least}),
+              flush=True)
+    if not anchors_ok:
+        return fail("an anchor missed its bound against the reference binary")
 
     # each kernel's count on the path that runs it: the VIO slice, the loop
     # closure (att_field), the field tool (nn_field), the single-pass drive

@@ -22,6 +22,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from rebvio_tpu_torch import types as T
 from rebvio_tpu_torch.configs import PipelineConfig
 from rebvio_tpu_torch.geometry import so3
 
@@ -57,11 +58,15 @@ class KeyframeMapBuilder:
     def add_frame(self, edge_map, orientation: np.ndarray, position: np.ndarray,
                   K_scale: float = 1.0) -> None:
         """edge_map: the post-step state.edge_map; pose from the step's
-        odometry output.  Copies four [K] fields to the host per frame."""
+        odometry output.  Copies four [K] fields to the host per frame.  A
+        keyframe's map is stored as a copy on its device: a graphed runner
+        rewrites state.edge_map in place every frame."""
+        keep = self.store_maps and self._frame % self.kf_every == self.kf_phase
         self.add_frame_arrays(
             edge_map.valid.cpu().numpy(), edge_map.match_id.cpu().numpy(),
             edge_map.pos_img.cpu().numpy(), edge_map.rho.cpu().numpy(),
-            orientation, position, K_scale=K_scale, edge_map=edge_map)
+            orientation, position, K_scale=K_scale,
+            edge_map=T.tree_map(torch.clone, edge_map) if keep else None)
 
     def add_frame_arrays(self, valid: np.ndarray, match_id: np.ndarray, pos_img: np.ndarray,
                          rho: np.ndarray, orientation: np.ndarray, position: np.ndarray,

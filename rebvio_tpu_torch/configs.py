@@ -129,6 +129,11 @@ class CoreConfig:
     quantile_num_bins: int = 100
     reshape_q_abs: float = 1e-4
 
+    @property
+    def search_range_px(self) -> int:
+        """``search_range`` as the field's integer pixel radius."""
+        return int(self.search_range)
+
 
 @dataclasses.dataclass(frozen=True)
 class ImuConfig:

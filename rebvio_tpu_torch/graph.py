@@ -1,0 +1,234 @@
+"""The runner's step as one CUDA graph, fed from a pinned staging ring
+(the port of rebvio_tpu/runner.py:59-78 and :124-139).
+
+The JAX runner traces undistortion and the step into one ``jax.jit`` and
+hands it frame i+1's device buffer before it dispatches step i.  Here:
+
+- ``SlotLayout``: one staging slot's bytes: n raw frames, then n packed
+  IMU windows each followed by the frame dt (float32).  One slot is one
+  host-to-device copy.
+- ``StagingRing``: round-robin slots.  A slot is handed out again only after
+  the event recorded behind the replay that read it has completed, so the
+  host never overwrites a pinned buffer the device has yet to read.
+- ``StepProgram``: the step over the n frames of a slot.  On a CUDA device
+  with ``graph=True`` it is captured once into a ``torch.cuda.CUDAGraph``
+  over static buffers (the input slot, the caller's state, the packed
+  odometry) and replayed; otherwise it runs eagerly.  A capture or replay
+  that fails raises: there is no eager fallback on the card.
+
+Upload: the host packs a slot, copies it on a copy stream into the slot's
+device twin (``non_blocking`` from pinned memory) and records an event; the
+launch makes the compute stream wait on that event, copies the twin into
+the graph's static input and replays.  So frame i+1's upload overlaps step
+i, and a slot's twin is reread only after its own copy.
+"""
+
+from __future__ import annotations
+
+import gc
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from rebvio_tpu_torch import types as T
+from rebvio_tpu_torch.ops import kernels
+from rebvio_tpu_torch.ops.imu import imu_window_view, imu_words, pack_imu_host
+
+f32 = torch.float32
+ODO_WORDS = 8       # orientation 3, position 3, num_matches (int32 bits), run_ok (first byte)
+
+
+def odometry_view(packed: torch.Tensor) -> T.Odometry:
+    """Odometry as views of packed rows ``[..., ODO_WORDS]`` float32."""
+    return T.Odometry(orientation=packed[..., 0:3], position=packed[..., 3:6],
+                      num_matches=packed[..., 6].view(torch.int32),
+                      run_ok=packed[..., 7:8].view(torch.uint8)[..., 0].view(torch.bool))
+
+
+def copy_tree_(dst, src) -> None:
+    """``copy_`` every leaf of ``src`` into the matching leaf of ``dst``.  A
+    source leaf that lies in the storage of another destination leaf would
+    be overwritten before it is read: that raises."""
+    d, s = T.tree_leaves(dst), T.tree_leaves(src)
+    owner = {x.untyped_storage().data_ptr(): i for i, x in enumerate(d)}
+    for i, (x, y) in enumerate(zip(d, s)):
+        j = owner.get(y.untyped_storage().data_ptr(), i)
+        if j != i:
+            raise RuntimeError(f"copy_tree_: source leaf {i} aliases destination leaf {j}")
+    for x, y in zip(d, s):
+        x.copy_(y)
+
+
+class SlotLayout:
+    """Bytes of one staging slot: ``n`` frames ``shape`` of numpy ``dtype``,
+    then float32 rows ``[n, imu_words(S) + 1]`` (the packed IMU window, then
+    the frame dt)."""
+
+    def __init__(self, n: int, shape, dtype, sample_max: int):
+        self.n, self.shape, self.dtype, self.S = n, tuple(shape), np.dtype(dtype), sample_max
+        self.torch_dtype = torch.from_numpy(np.empty(0, self.dtype)).dtype
+        self.frame_bytes = n * int(np.prod(self.shape)) * self.dtype.itemsize
+        self.imu_off = -(-self.frame_bytes // 16) * 16
+        self.words = imu_words(sample_max) + 1
+        self.nbytes = self.imu_off + n * self.words * 4
+
+    def pack(self, slot: np.ndarray, k: int, image, gyro, acc, ts_us, dt: float) -> None:
+        """Frame ``k`` of the slot (host bytes ``slot``)."""
+        image = np.asarray(image)
+        if image.shape != self.shape or image.dtype != self.dtype:
+            raise ValueError(f"frame {image.dtype} {image.shape}: this runner's static input "
+                             f"takes {self.dtype} {self.shape}")
+        slot[:self.frame_bytes].view(self.dtype).reshape((self.n,) + self.shape)[k] = image
+        row = slot[self.imu_off:].view(np.float32).reshape(self.n, self.words)[k]
+        pack_imu_host(row[:-1], gyro, acc, ts_us, self.S)
+        row[-1] = dt
+
+    def views(self, slot: torch.Tensor):
+        """(frames [n, H, W], ImuFrameData with leaves [n, ...], dts [n]) as
+        views of the slot's bytes ``slot`` (a uint8 tensor)."""
+        frames = slot[:self.frame_bytes].view(self.torch_dtype).view((self.n,) + self.shape)
+        rows = slot[self.imu_off:].view(f32).view(self.n, self.words)
+        return frames, imu_window_view(rows[:, :-1], self.S), rows[:, -1]
+
+
+class StagingRing:
+    """Round-robin staging slots.  ``acquire`` hands out the next slot once
+    the event that ``release`` recorded for its last reader has completed
+    (``event.synchronize()``); a slot handed out and not yet released cannot
+    be handed out again.  ``slots`` must exceed the frames in flight."""
+
+    def __init__(self, slots: List):
+        self.slots = slots
+        self._events: List[Optional[object]] = [None] * len(slots)
+        self._held = [False] * len(slots)
+        self._next = 0
+
+    def acquire(self) -> int:
+        k = self._next
+        if self._held[k]:
+            raise RuntimeError(f"staging slot {k} is still held: more frames staged than the "
+                               f"ring's {len(self.slots)} slots")
+        ev = self._events[k]
+        if ev is not None:
+            ev.synchronize()
+            self._events[k] = None
+        self._held[k] = True
+        self._next = (k + 1) % len(self.slots)
+        return k
+
+    def release(self, k: int, event) -> None:
+        """The device's last read of slot ``k`` is ordered before ``event``
+        (None: the read is done, as on the CPU)."""
+        self._held[k] = False
+        self._events[k] = event
+
+
+class StepProgram:
+    """``fn(state, frames, imu, dts) -> (state', odometry [n])`` over the n
+    frames of one staging slot, for one runner state.
+
+    ``stage`` packs frames into a free slot and starts its upload; ``run``
+    runs the step on a staged slot.  With ``graph`` (CUDA only) the first
+    ``run`` warms the step up twice on a side stream from a copy of the
+    state (filling every cache, the kernel build and cuBLAS's
+    workspaces), then captures it with ``state`` as static input and output
+    (the new state is ``copy_``-ed into it, never rebound) and replays it
+    from then on.  Launches counted in ``kernels.LAUNCHES`` during warm-up
+    and capture are taken back; each replay adds the captured ones."""
+
+    def __init__(self, fn: Callable, layout: SlotLayout, device: torch.device, n_slots: int,
+                 graph: bool, copy_stream=None):
+        self.fn, self.layout, self.device = fn, layout, device
+        self.cuda = device.type == "cuda"
+        self.graph = graph and self.cuda
+        self.ring = StagingRing([torch.empty(layout.nbytes, dtype=torch.uint8,
+                                             pin_memory=self.cuda) for _ in range(n_slots)])
+        self._copied: List[Optional[torch.cuda.Event]] = [None] * n_slots
+        if self.cuda:
+            self.twins = [torch.empty(layout.nbytes, dtype=torch.uint8, device=device)
+                          for _ in range(n_slots)]
+            self.static_in = torch.empty(layout.nbytes, dtype=torch.uint8, device=device)
+            self.copy_stream = copy_stream
+        self.out = torch.zeros((layout.n, ODO_WORDS), dtype=f32, device=device)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captured_launches = {}
+
+    def stage(self, frames) -> int:
+        """Pack ``frames`` (n tuples (image, gyro, acc, ts_us, dt)) into a free
+        slot and, on the card, start its upload.  Returns the slot."""
+        k = self.ring.acquire()
+        host = self.ring.slots[k]
+        buf = host.numpy()
+        for i, fr in enumerate(frames):
+            self.layout.pack(buf, i, *fr)
+        if self.cuda:
+            with torch.cuda.stream(self.copy_stream):
+                self.twins[k].copy_(host, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self.copy_stream)
+            self._copied[k] = ev
+        return k
+
+    def run(self, k: int, state: T.VioState):
+        """The step over staged slot ``k`` from ``state``.  Returns (state,
+        packed odometry [n, ODO_WORDS] (a fresh tensor), event recorded after
+        the step, None on the CPU).  With a graph, ``state`` is the static
+        state and is returned as it is, updated in place."""
+        if not self.cuda:
+            frames, imu, dts = self.layout.views(self.ring.slots[k])
+            state, odo = self.fn(state, frames, imu, dts)
+            copy_tree_(odometry_view(self.out), odo)
+            self.ring.release(k, None)
+            return state, self.out.clone(), None
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(self._copied[k])
+        self.static_in.copy_(self.twins[k])
+        if self.graph:
+            if self._graph is None:
+                self._capture(state)
+            self._graph.replay()
+            for name, n in self.captured_launches.items():
+                kernels.LAUNCHES[name] += n
+        else:
+            frames, imu, dts = self.layout.views(self.static_in)
+            state, odo = self.fn(state, frames, imu, dts)
+            copy_tree_(odometry_view(self.out), odo)
+        done = torch.cuda.Event()
+        done.record(cur)
+        self.ring.release(k, done)
+        return state, self.out.clone(), done
+
+    def _capture(self, state: T.VioState) -> None:
+        frames, imu, dts = self.layout.views(self.static_in)
+        before = dict(kernels.LAUNCHES)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            scratch = T.tree_map(torch.clone, state)
+            for _ in range(2):
+                scratch, _odo = self.fn(scratch, frames, imu, dts)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        del scratch, _odo
+        warm = dict(kernels.LAUNCHES)
+        g = torch.cuda.CUDAGraph()
+        # no garbage collection while capturing: a collected cycle holding a
+        # CUDA graph or an event (an earlier runner) would free it with a
+        # CUDA call that the capture does not permit, and invalidate it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(g, stream=side):
+                new_state, odo = self.fn(state, frames, imu, dts)
+                copy_tree_(state, new_state)
+                copy_tree_(odometry_view(self.out), odo)
+            del new_state, odo
+        finally:
+            if collecting:
+                gc.enable()
+        self.captured_launches = {name: kernels.LAUNCHES[name] - warm[name]
+                                  for name in kernels.LAUNCHES
+                                  if kernels.LAUNCHES[name] != warm[name]}
+        kernels.LAUNCHES.update(before)
+        self._graph = g

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from rebvio_tpu_torch import types as T
@@ -79,16 +80,8 @@ def _detect_core(image, threshold, mats: FrontendMatrices, cfg: EdgeDetectorConf
             & (torch.abs(xs) <= 0.5) & (torch.abs(ys) <= 0.5)
             & (g2 >= gradient_threshold_sq) & (g2 > 0))
 
-    # raster-order compaction with the keylines_max cutoff: nonzero returns
-    # raster order, so slot s holds the (s+1)-th candidate
-    cand_flat = cand.reshape(-1)
-    total = cand_flat.sum(dtype=torch.int64)
+    safe_idx, valid, total = compact_raster(cand.reshape(-1), kmax)
     count = torch.clamp(total, max=kmax).to(i32)
-    idx = torch.nonzero(cand_flat).squeeze(1)[:kmax]
-    n = idx.shape[0]
-    safe_idx = torch.zeros((kmax,), dtype=torch.int64, device=dev)
-    safe_idx[:n] = idx
-    valid = torch.arange(kmax, device=dev) < n
     prow = torch.div(safe_idx, W, rounding_mode="floor").to(f32)
     pcol = (safe_idx % W).to(f32)
     planes = torch.stack([xs, ys, t0, t1], dim=-1).reshape(H * W, 4)
@@ -99,12 +92,8 @@ def _detect_core(image, threshold, mats: FrontendMatrices, cfg: EdgeDetectorConf
     pos = torch.where(vm, torch.stack([pcol + xs_k, prow + ys_k], dim=-1), 0.0)
     grad = torch.where(vm, torch.stack([g0_k, g1_k], dim=-1), 0.0)
     grad_norm = torch.sqrt(torch.sum(grad * grad, dim=-1))
-    pp = torch.tensor([cam.cx, cam.cy], dtype=f32, device=dev)
-    pos_img = torch.where(vm, pos - pp, 0.0)
-
-    kl_id_img = torch.full((H * W,), -1, dtype=i32, device=dev)
-    kl_id_img[idx] = torch.arange(n, dtype=i32, device=dev)   # unique indices
-    kl_id_img = kl_id_img.reshape(H, W)
+    pos_img = torch.where(vm, pos - _principal_point(cam, dev), 0.0)
+    kl_id_img = id_image(safe_idx, valid, H, W)
 
     id_next, id_prev = _join_edges(pos, grad, valid, kl_id_img)
     map_threshold = _tune_threshold(grad_norm, valid, cfg)
@@ -117,6 +106,46 @@ def _detect_core(image, threshold, mats: FrontendMatrices, cfg: EdgeDetectorConf
         threshold=map_threshold,
     )
     return em, (xs, ys, t0, t1)
+
+
+def compact_raster(cand_flat: torch.Tensor, kmax: int):
+    """Raster-order compaction of a flat candidate mask with the
+    ``keylines_max`` cutoff, at a fixed size: slot s holds the (s+1)-th
+    candidate, the first index whose running count reaches s + 1 (a binary
+    search of the prefix sum, so no scatter and no collisions); slots past
+    the candidates hold index 0.  Returns (index [kmax] int64, valid [kmax],
+    total [] int64), all on the device: nothing sizes a tensor on the host,
+    as ``torch.nonzero`` would."""
+    csum = torch.cumsum(cand_flat, 0, dtype=torch.int64)
+    total = csum[-1]
+    slot = torch.arange(kmax, dtype=torch.int64, device=cand_flat.device)
+    valid = slot < total
+    found = torch.searchsorted(csum, slot + 1)
+    return torch.where(valid, found, 0), valid, total
+
+
+def id_image(idx: torch.Tensor, valid: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """[H, W] int32 image of slot ids at the compacted raster indices, -1
+    elsewhere: one scatter into [H*W + kmax], each invalid slot writing a dump
+    cell of its own past the image (sent to one shared cell, they would
+    serialize on one address)."""
+    kmax = idx.shape[0]
+    slot = torch.arange(kmax, dtype=torch.int64, device=idx.device)
+    tgt = torch.where(valid, idx, H * W + slot)
+    out = torch.full((H * W + kmax,), -1, dtype=i32, device=idx.device)
+    out.scatter_(0, tgt, slot.to(i32))          # unique targets
+    return out[:H * W].reshape(H, W)
+
+
+_PP = {}
+
+
+def _principal_point(cam: CameraConfig, dev) -> torch.Tensor:
+    """[cx, cy] on ``dev``, uploaded once per (camera, device)."""
+    key = (cam.cx, cam.cy, str(dev))
+    if key not in _PP:
+        _PP[key] = torch.as_tensor(np.asarray([cam.cx, cam.cy], np.float32)).to(dev)
+    return _PP[key]
 
 
 def _join_edges(pos, grad, valid, kl_id_img) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -169,7 +198,7 @@ def _tune_threshold(grad_norm, valid, cfg: EdgeDetectorConfig) -> torch.Tensor:
     bins = torch.clamp(bins, 0, nb - 1)
     hist = torch.zeros((nb,), dtype=torch.int64, device=grad_norm.device)
     hist = hist.index_add(0, bins, valid.to(torch.int64))
-    hist[0] = 0
+    hist = torch.where(torch.arange(nb, device=hist.device) == 0, 0, hist)
     csum = torch.cumsum(hist, 0)
     reached = csum >= cfg.keylines_max
     first = torch.argmax(reached.to(torch.int32))

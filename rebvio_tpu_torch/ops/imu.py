@@ -52,7 +52,10 @@ def integrate_imu(data: T.ImuFrameData, R_c2i: torch.Tensor,
     dt_s = data.dt_interval
     # dgyro = R_c2i^T (gyro_last - gyro_init) / dt_s (imu.hpp:85), only n > 1
     first = data.gyro[0]
-    last = data.gyro[torch.clamp(n.to(torch.int64) - 1, 0, S - 1)]
+    # the last sample by index_select: indexing by a 0-d device tensor would
+    # read the index back to the host
+    last_i = torch.clamp(n.to(torch.int64) - 1, 0, S - 1).reshape(1)
+    last = torch.index_select(data.gyro, 0, last_i)[0]
     dt_safe = torch.where(dt_s > 0, dt_s, 1.0)
     dgyro = torch.where(n > 1, (R_c2i.T @ (last - first)) / dt_safe, 0.0)
     # lever-arm compensation (imu.hpp:88)
@@ -95,29 +98,54 @@ def estimate_mean_acceleration(sacc, R, acc_hist) -> Tuple[torch.Tensor, torch.T
     return 0.25 * torch.sum(new_hist, dim=0), new_hist
 
 
-def pack_imu_window(gyro, acc, ts_us, sample_max: int, device="cuda") -> T.ImuFrameData:
-    """One inter-frame IMU window as ImuFrameData on ``device``: per-sample
-    dt with the first sample's dt fixed at 0.005 s (imu.hpp:54-58) and the
-    interval dt by integer-microsecond extrapolation (last-init)/(n-1)*n
-    (imu.hpp:81)."""
-    dev = resolve_device(device)
-    n = len(ts_us)
-    g = np.zeros((sample_max, 3), np.float32)
-    a = np.zeros((sample_max, 3), np.float32)
-    d = np.zeros((sample_max,), np.float32)
+def imu_words(sample_max: int) -> int:
+    """float32 words of one packed IMU window: gyro [S,3], acc [S,3], dt [S],
+    n (int32 bits), dt_interval."""
+    return 7 * sample_max + 2
+
+
+def pack_imu_host(out: np.ndarray, gyro, acc, ts_us, sample_max: int) -> None:
+    """Fill ``out`` (float32 [imu_words]) with one inter-frame IMU window:
+    per-sample dt with the first sample's dt fixed at 0.005 s (imu.hpp:54-58)
+    and the interval dt by integer-microsecond extrapolation
+    (last-init)/(n-1)*n (imu.hpp:81).  Host only: the runner packs into a
+    pinned staging slot and uploads it with one non-blocking copy."""
+    S = sample_max
+    out[:] = 0.0
+    g = out[:3 * S].reshape(S, 3)
+    a = out[3 * S:6 * S].reshape(S, 3)
+    d = out[6 * S:7 * S]
+    n = min(len(ts_us), S)
     dt_interval_us = 0
     if n > 0:
-        n = min(n, sample_max)
         g[:n] = gyro[:n]
         a[:n] = acc[:n]
         d[0] = 0.005
         if n > 1:
             d[1:n] = (ts_us[1:n] - ts_us[: n - 1]).astype(np.float64) / 1e6
             dt_interval_us = int(ts_us[n - 1] - ts_us[0]) // (n - 1) * n
+    out[7 * S:7 * S + 1].view(np.int32)[0] = n
+    out[7 * S + 1] = dt_interval_us / 1e6
+
+
+def imu_window_view(block: torch.Tensor, sample_max: int) -> T.ImuFrameData:
+    """ImuFrameData as views of packed windows ``block`` (float32
+    [..., imu_words]; a leading axis stacks windows): no copy, no kernel."""
+    S = sample_max
+    lead = tuple(block.shape[:-1])
     return T.ImuFrameData(
-        gyro=torch.as_tensor(g, device=dev),
-        acc=torch.as_tensor(a, device=dev),
-        dt=torch.as_tensor(d, device=dev),
-        n=torch.tensor(n, dtype=torch.int32, device=dev),
-        dt_interval=torch.tensor(dt_interval_us / 1e6, dtype=torch.float32, device=dev),
+        gyro=block[..., :3 * S].reshape(lead + (S, 3)),
+        acc=block[..., 3 * S:6 * S].reshape(lead + (S, 3)),
+        dt=block[..., 6 * S:7 * S],
+        n=block[..., 7 * S].view(torch.int32),
+        dt_interval=block[..., 7 * S + 1],
     )
+
+
+def pack_imu_window(gyro, acc, ts_us, sample_max: int, device="cuda") -> T.ImuFrameData:
+    """One inter-frame IMU window as ImuFrameData on ``device``
+    (``pack_imu_host``, then one upload from pageable memory)."""
+    dev = resolve_device(device)
+    block = np.empty((imu_words(sample_max),), np.float32)
+    pack_imu_host(block, gyro, acc, ts_us, sample_max)
+    return imu_window_view(torch.from_numpy(block).to(dev), sample_max)

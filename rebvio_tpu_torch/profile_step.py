@@ -1,12 +1,14 @@
 """Where the time of the step goes on the GPU.
 
-    python -m rebvio_tpu_torch.profile_step [--vio] [--frames 8] [--out FILE]
+    python -m rebvio_tpu_torch.profile_step [--vio] [--graph] [--frames 8] [--out FILE]
 
 Runs the parity-profile VO slice (752x480, 16000 keylines, 8 tube probes)
 over synthetic seed 0, or with ``--vio`` the VIO slice (``PipelineConfig()``:
 IMU, SAB filter, undistortion) over the distorted seed-0 reference-anchor
-stream.  Warm-up frames (2; with ``--vio`` up to the first frame with the SAB
-filter engaged), then ``--frames`` frames under ``torch.profiler``, then the
+stream, through ``VioRunner.process_frame``: eager, or with ``--graph`` one
+CUDA graph replay a frame.  Warm-up frames (2; with ``--vio`` up to the first
+frame with the SAB filter engaged), then ``--frames`` frames under
+``torch.profiler``, then the
 same number again under ``torch.cuda.set_sync_debug_mode`` to count the
 host syncs.  Prints one JSON line: the wall time per frame, the device's
 busy and idle share of that wall time (union of the kernel intervals), the
@@ -51,6 +53,8 @@ def _union_us(intervals):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--vio", action="store_true", help="profile the VIO slice")
+    ap.add_argument("--graph", action="store_true",
+                    help="replay the step as a CUDA graph (default: eager)")
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
@@ -66,7 +70,7 @@ def main(argv=None) -> dict:
     n = warm + 2 * args.frames
     seq = synthetic.generate(CameraConfig(), n_frames=n, seed=0, distort=args.vio,
                              imu_preroll_s=0.1 if args.vio else 0.0)
-    runner = VioRunner(cfg, undistort=args.vio, device="cuda")
+    runner = VioRunner(cfg, undistort=args.vio, device="cuda", graph=args.graph)
 
     def frame(i):
         runner.process_frame(seq.images[i], int(seq.ts_us[i]), seq.imu_ts_us, seq.imu_gyro,
@@ -91,7 +95,8 @@ def main(argv=None) -> dict:
                 frame(i)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    # (the mode's own "prototype feature" notice is not a sync)
+    syncs = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
     sync_sites = defaultdict(int)        # source line of each synchronizing call
     for w in syncs:
         sync_sites[f"{w.filename.split('rebvio_tpu_torch/')[-1]}:{w.lineno}"] += 1
@@ -114,6 +119,7 @@ def main(argv=None) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out = {
         "slice": "vio" if args.vio else "vo",
+        "mode": "graph" if args.graph else "eager",
         "device": torch.cuda.get_device_name(0),
         "frames": args.frames,
         "wall_ms_per_frame": wall_us / args.frames / 1e3,

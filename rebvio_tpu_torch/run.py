@@ -2,18 +2,24 @@
 
     python -m rebvio_tpu_torch.run --dataset synthetic --frames 120 --mode vio
     python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --pose-graph
+    python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --chunk 8
+    python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --realtime 1.0
 
-Runs on the GPU unless ``--device cpu`` is given.  Writes a reference-format
-odometry file on request and prints one JSON line with the frame rate and
-the ATE against the synthetic ground truth; with ``--pose-graph`` also the
-keyframe pose graph's loop factors, cost and ATE before and after the
-optimization.  Only what the port implements is offered: argparse rejects
-every other flag of the JAX runner.
+Runs on the GPU unless ``--device cpu`` is given; there the step is one CUDA
+graph a frame (``--chunk N``: a graph of N frames).  Writes a
+reference-format odometry file on request and prints one JSON line with the
+frame rate and the ATE against the synthetic ground truth; with
+``--pose-graph`` also the keyframe pose graph's loop factors, cost and ATE
+before and after the optimization; with ``--realtime`` the processed and
+dropped frames and the worst latency.  Only what the port implements is
+offered: argparse rejects every other flag of the JAX runner
+(``--chunk-mode pipelined`` among them).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -65,6 +71,16 @@ def main(argv=None):
                     help="loop closure: extend the coarse yaw sweep to a 2-D yaw x roll "
                          "grid sweeping +-DEG about the optical axis (off by default: on "
                          "pure-yaw drift the extra candidates add selection noise)")
+    ap.add_argument("--realtime", type=float, default=0.0, metavar="SPEED",
+                    help="pace frames at sensor rate x SPEED with keep-up semantics: a "
+                         "bounded queue drops frames when the estimator falls behind (the "
+                         "reference's paced player and subscriber queues, "
+                         "ros_rebvio.cpp:89-126); reports processed/dropped and the worst "
+                         "latency")
+    ap.add_argument("--rt-queue", type=int, default=2, help="realtime mode bounded queue depth")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="frames per replay (exact mode: the same results as streaming; "
+                         "0/1 = streaming, one replay per frame)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default) runs the hand-written kernels on the GPU and "
                          "fails without one; cpu runs their plain PyTorch versions")
@@ -72,6 +88,10 @@ def main(argv=None):
 
     from rebvio_tpu_torch.data import synthetic
 
+    if args.realtime > 0 and (args.pose_graph or args.chunk):
+        ap.error("--realtime is a streaming mode (no --pose-graph/--chunk)")
+    if args.chunk and args.pose_graph:
+        ap.error("--chunk with --pose-graph needs run_mapped, not ported yet")
     config = preset_config(args.preset, use_imu=(args.mode == "vio"))
     seq = synthetic.generate(config.camera, n_frames=args.frames, seed=args.seed)
     gt = seq.gt_pos
@@ -85,16 +105,24 @@ def main(argv=None):
         mapper = KeyframeMapBuilder(config, kf_every=args.kf_every, store_maps=True,
                                     kf_phase=args.kf_every - 1)
 
-    # one warm-up frame (kernel build, band matrices), so the fps figure is steady state
+    # warm-up (kernel build, band matrices, the graphs' capture), so the fps
+    # figure is steady state: one frame, and one chunk with --chunk
     runner.process_frame(np.asarray(seq.images[0]), int(seq.ts_us[0]) - 1,
                          np.asarray([], dtype=np.int64), np.zeros((0, 3)), np.zeros((0, 3)))
+    if args.chunk > 1:
+        runner.run(dataclasses.replace(seq, images=seq.images[:args.chunk],
+                                       ts_us=seq.ts_us[:args.chunk]), chunk=args.chunk)
     runner.reset()
     if on_gpu:
         torch.cuda.synchronize()
 
     t0 = time.time()
-    if mapper is None:
-        res = runner.run(seq)
+    rt = None
+    if args.realtime > 0:
+        rt = runner.run_realtime(seq, speed=args.realtime, queue_size=args.rt_queue)
+        res = rt.result
+    elif mapper is None:
+        res = runner.run(seq, chunk=args.chunk)
     else:
         rows = []
         for i in range(len(seq.images)):
@@ -115,6 +143,10 @@ def main(argv=None):
         ev.write_odometry(args.odometry_out, res.ts_us, res.orientation, res.position)
 
     out = {"frames": n, "fps": n / elapsed, "run_ok": bool(res.run_ok[-1])}
+    if rt is not None:
+        out.update(realtime_speed=args.realtime, rt_processed=rt.processed,
+                   rt_dropped=rt.dropped, rt_worst_latency_ms=rt.worst_latency_s * 1e3)
+        gt = gt[rt.frame_idx]
     if mapper is not None and mapper.n_keyframes() >= 3:
         from rebvio_tpu_torch.ba import loop_closure as lc
         from rebvio_tpu_torch.ba import pose_graph as pgm

@@ -50,7 +50,7 @@ def record_inputs():
     engaged = 4 + cfg.imu.init_bias_frame_num + 2
     seq = synthetic.generate(CameraConfig(), n_frames=engaged + 1, seed=0, distort=True,
                              imu_preroll_s=0.1)
-    runner = VioRunner(cfg, undistort=True, device="cuda")
+    runner = VioRunner(cfg, undistort=True, device="cuda", graph=False)   # eager: recorded
     joins, fwds = [], []
     plain_join, plain_fwd = edge_detect._join_edges, matching.forward_match
 

@@ -32,6 +32,28 @@ class _TensorTree:
         return dataclasses.replace(self, **kw)
 
 
+def tree_leaves(tree):
+    """The tensors of a state dataclass, depth first in field order."""
+    if isinstance(tree, _TensorTree):
+        return [x for f in dataclasses.fields(tree) for x in tree_leaves(getattr(tree, f.name))]
+    return [tree]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the matching leaves of state dataclasses of one type."""
+    t0 = trees[0]
+    if isinstance(t0, _TensorTree):
+        return dataclasses.replace(t0, **{f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))
+                                          for f in dataclasses.fields(t0)})
+    return fn(*trees)
+
+
+def tree_where(cond: torch.Tensor, a, b):
+    """Leafwise ``torch.where(cond, a, b)`` (the JAX package's _tree_where):
+    a device select, so no host sync decides between the two states."""
+    return tree_map(lambda x, y: torch.where(cond, x, y), a, b)
+
+
 @dataclasses.dataclass
 class EdgeMap(_TensorTree):
     """Fixed-shape keyline map of one frame (rebvio_tpu.types.EdgeMap)."""

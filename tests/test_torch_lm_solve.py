@@ -2,7 +2,9 @@
 on the CPU) and its Cholesky inverse against the JAX package, and source
 checks that the step's modules never read a tensor back to the host (nor
 index the field seeding by a boolean mask, nor upload Python scalars in the
-matcher and the rotation helpers)."""
+matcher, the rotation helpers, the detector, the IMU and the pipeline, nor
+cast a tensor to a Python scalar in the pipeline, nor call nonzero in
+ops/)."""
 
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from rebvio_tpu_torch.ops.matching import estimate_quantile  # noqa: E402
 PORT = Path(__file__).resolve().parent.parent / "rebvio_tpu_torch"
 STEP_SOURCES = sorted(str(p.relative_to(PORT)) for d in ("geometry", "ops")
                       for p in (PORT / d).glob("*.py"))
+OPS_SOURCES = [r for r in STEP_SOURCES if r.startswith("ops/")]
 
 
 @pytest.mark.parametrize("n", [3, 6, 7])
@@ -145,10 +148,11 @@ def _host_reads(tree):
                 yield node.lineno, 'to("cpu")'
 
 
-@pytest.mark.parametrize("rel", STEP_SOURCES)
+@pytest.mark.parametrize("rel", STEP_SOURCES + ["pipeline.py"])
 def test_step_modules_never_read_back(rel):
-    """geometry/ and ops/ hold the step's device code: a host copy there is a
-    sync on the frame path (and on the card a piece of the step on the CPU)."""
+    """geometry/, ops/ and pipeline.py hold the step's device code: a host
+    copy there is a sync on the frame path (and on the card a piece of the
+    step on the CPU), and it cannot be captured into the runner's graph."""
     found = list(_host_reads(ast.parse((PORT / rel).read_text())))
     assert not found, f"{rel}: host reads at {found}"
 
@@ -161,8 +165,9 @@ def test_host_read_detector_sees_them():
 
 
 # the modules whose per-frame constants no longer go to the device as
-# torch.tensor of Python scalars (ops/edge_detect.py still does: ROADMAP)
-NO_SCALAR_UPLOADS = ("ops/matching.py", "geometry/so3.py")
+# torch.tensor of Python scalars
+NO_SCALAR_UPLOADS = ("ops/matching.py", "geometry/so3.py", "ops/edge_detect.py", "ops/imu.py",
+                     "pipeline.py")
 
 
 def _scalar_uploads(tree):
@@ -213,3 +218,50 @@ def test_field_seeding_never_masks():
 def test_mask_subscript_detector_sees_them():
     src = "def f(a, win, mask, w):\n    b = a[win]\n    a[0, mask] = 1\n    return b, a[w]\n"
     assert sorted(n for _, n in _mask_subscripts(ast.parse(src))) == ["mask", "win"]
+
+
+def _host_scalar_casts(tree):
+    """``bool(x)``, ``int(x)``, ``float(x)`` of anything but a literal: on a
+    device tensor each reads it back to the host, and a branch on it cannot
+    be captured into a graph."""
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                and node.func.id in ("bool", "int", "float") and node.args
+                and not isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, node.func.id
+
+
+def test_pipeline_never_casts_to_host_scalars():
+    """pipeline.py decides first frame, failure latch and recovery by device
+    selects, as JAX does: no Python bool/int/float of a tensor."""
+    found = list(_host_scalar_casts(ast.parse((PORT / "pipeline.py").read_text())))
+    assert not found, f"pipeline.py: host scalar casts at {found}"
+
+
+def test_host_scalar_cast_detector_sees_them():
+    src = ("def f(s, c):\n    a = bool(s.run_ok == 0)\n    b = int(c.search_range)\n"
+           "    return a, b, float(s.K), float(2), int('3')\n")
+    assert sorted(_host_scalar_casts(ast.parse(src))) == [(2, "bool"), (3, "int"), (4, "float")]
+
+
+def _nonzero_calls(tree):
+    """``torch.nonzero(x)`` and ``x.nonzero()``: the result's size is read
+    back to the host."""
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "nonzero"):
+            yield node.lineno
+
+
+@pytest.mark.parametrize("rel", OPS_SOURCES)
+def test_ops_never_call_nonzero(rel):
+    """ops/ sizes nothing on the host: the detector's compaction is a prefix
+    sum and a binary search at the fixed keylines_max."""
+    found = list(_nonzero_calls(ast.parse((PORT / rel).read_text())))
+    assert not found, f"{rel}: nonzero at lines {found}"
+
+
+def test_nonzero_detector_sees_them():
+    src = "def f(m, np):\n    a = torch.nonzero(m)\n    return a, m.nonzero(), np.flatnonzero(m)\n"
+    assert sorted(_nonzero_calls(ast.parse(src))) == [2, 3]
+    assert "ops/edge_detect.py" in OPS_SOURCES

@@ -185,7 +185,8 @@ def test_step_chunk_equals_steps():
                             tc.imu.sample_max, device="cpu")
     dts = [0.0] + [float(d) / 1e6 for d in np.diff(seq.ts_us)]
     s0 = tT.init_vio_state(tc, device="cpu")
-    sc, oc = tpipe.step_chunk(s0, imgs, [empty] * 3, dts, tc)
+    stacked = tT.tree_map(lambda x: torch.stack([x] * 3), empty)     # leaves [3, ...]
+    sc, oc = tpipe.step_chunk(s0, imgs, stacked, dts, tc)
     st = s0
     for i in range(3):
         st, o = tpipe.step(st, imgs[i], empty, dts[i], tc)
