@@ -3,8 +3,9 @@
 profile (752x480, 16000 keylines, 8 tube probes): the vision-only VO step,
 the VIO step (IMU, gyro-bias fusion, SAB filter, undistortion), both
 through the streaming runner as one CUDA graph a frame, the
-loop-closure / pose-graph back end on the VIO run's keyframe maps, and the
-field timing tool.
+loop-closure / pose-graph back end on the VIO run's keyframe maps, the
+field timing tool, and the reference-semantics step (the rasterized field
+and the pixel-walk matcher) with the pipelined chunk mode.
 
     python3 chip_smoke.py
 
@@ -34,7 +35,11 @@ Phases (any failure exits non-zero):
      Cholesky inverse (csrc/chol_inverse.cu, no TPU kernel behind it) on the
      three matrices a VIO frame inverts and on one that is not positive
      definite; then the single-pass entry point tracker.try_vel driven over
-     the frame pair with the counters set to 0 before it.  att_flood,
+     the frame pair with the counters set to 0 before it.  On the
+     reference-semantics path (phase 8's configuration, frame 1 of the VO
+     stream) also minimize_vel on the full-resolution raster table
+     (tracker.raster_att, field_scale 1) and reg_ekf alone on the
+     walk-matched map.  att_flood,
      att_field, tube_match and nn_field must equal their plain versions bit
      for bit on every plane, reg_ekf on its ids, counters, klm and failed;
   3. VO slice: VioRunner(undistort=False) over 24 synthetic frames in three
@@ -71,8 +76,25 @@ Phases (any failure exits non-zero):
      (tests/test_reference_anchor.py's bounds): seed 1, rot18, seed 0 over
      300 frames, noise (seed 2) and blur (seed 3) at the parity profile;
      configs.fast_profile() over 60 frames of seed 0, noise and blur, with
-     the degraded streams' least match count.  The streams are made in
-     worker processes from the start of the run.
+     the degraded streams' least match count; the seed-0 run also against
+     the committed JAX golden (tests/data/torch_golden_fast_vio_euroc_seed0_60.txt)
+     and in tests/test_fast_profile.py:17-32's ATE band against phase 4's
+     run over the same 60 frames (and that band on its own 16 VO frames,
+     reported).  The streams are made in worker processes from the start
+     of the run;
+  8. the reference-semantics step, PipelineConfig(df_mode="raster",
+     matcher="walk"): VO over phase 3's 24 frames and VIO over phase 4's
+     120, each eager, one graph a frame and chunks of graphs (bit-identical,
+     same launch counts: K2 on the raster table, K5 alone after the walk,
+     K3 on VIO), plus the pipelined chunk (the threshold held for the
+     chunk), eager and graphed, bit-identical with the same launch counts;
+     its deviation from the exact chunk is reported.  Held against the
+     committed JAX goldens (tests/data/torch_golden_rw_vo_euroc_seed0_24.txt,
+     torch_golden_rw_vio_euroc_seed0_120.txt, and the pipelined chunk's
+     torch_golden_rw_vo_pipelined5_euroc_seed0_24.txt,
+     torch_golden_rw_vio_pipelined8_euroc_seed0_120.txt) and the reference
+     binary's;
+     the eager VIO step over NO_SYNC frames under set_sync_debug_mode("error").
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -109,6 +131,35 @@ MATCH_RTOL = 0.01           # per-frame num_matches, relative
 # 1.85 %, final K 0.145, final g_est 0.0028 m/s^2
 VIO_BOUNDS = dict(ate_sim3_m=0.008, ate_rigid_m=0.024, match_rtol=0.04, K_abs=0.3,
                   g_est_abs=0.006)
+# The reference-semantics goldens (raster field, pixel walk; `python
+# tests/test_torch_raster_walk.py`).  JAX's two paths differ here only in K5
+# (and K3 on VIO): both run the tracker's raster route in XLA, so their
+# spread cannot show the LM's summation order, which is where the port's
+# K2 differs (VO: sim3 8.2e-6 m, 0.033 % matches; VIO: sim3 0.0035 m, rigid
+# 0.0048 m, 0.67 %, K 0.057, g_est 0.0014).  Each bound is the larger of
+# twice that spread and the jfa/tube stream's bound (whose spread holds the
+# tracker's two summation orders): the jfa/tube bounds throughout.
+RW_VO_GOLDEN = REPO / "tests" / "data" / "torch_golden_rw_vo_euroc_seed0_24.txt"
+RW_VIO_GOLDEN = REPO / "tests" / "data" / "torch_golden_rw_vio_euroc_seed0_120.txt"
+RW_N_VIO = 120
+# the pipelined chunks (the threshold held for each chunk: another trajectory,
+# 2.2 mm (VO) and 0.19 m (VIO) from the streaming one in JAX) against JAX's
+# pipelined chunks of the same size, the bounds by the same rule: VO as the
+# streaming run (JAX's spread sim3 1.0e-5 m, 0.039 %); VIO twice JAX's spread
+# (sim3 0.0077 m, rigid 0.0112 m, 0.98 %, K 0.20, g_est 0.034) where that is
+# above the jfa/tube bound.  The reference binary's bound is not held there:
+# JAX's XLA path misses it on the CPU (0.0503 m; Pallas 0.0474)
+RW_VO_PIPE_GOLDEN = REPO / "tests" / "data" / "torch_golden_rw_vo_pipelined5_euroc_seed0_24.txt"
+RW_VIO_PIPE_GOLDEN = REPO / "tests" / "data" / "torch_golden_rw_vio_pipelined8_euroc_seed0_120.txt"
+RW_VIO_PIPE_BOUNDS = dict(ate_sim3_m=0.0154, ate_rigid_m=0.024, match_rtol=0.04, K_abs=0.4,
+                          g_est_abs=0.068)
+# the fast profile's JAX golden (60 frames of the seed-0 anchor stream):
+# twice the spread between JAX's two paths (sim3 0.0128 m, rigid 0.0161 m,
+# 7.1 % matches, K 2.15 (K is still converging at frame 60), g_est 0.019)
+FAST_GOLDEN = REPO / "tests" / "data" / "torch_golden_fast_vio_euroc_seed0_60.txt"
+FAST_BOUNDS = dict(ate_sim3_m=0.026, ate_rigid_m=0.032, match_rtol=0.14, K_abs=4.3,
+                   g_est_abs=0.038)
+FAST_BAND_VO_N = 16     # tests/test_fast_profile.py's VO frames
 # the reference binary's golden, at tests/test_reference_anchor.py's bounds
 REF_ATE_BOUND_M = 0.05      # sim3 cross-ATE
 REF_GT_MARGIN_M = 0.05      # ATE vs ground truth no worse than the reference's + this
@@ -241,7 +292,7 @@ def same_run(np, a, b) -> bool:
 
 
 def drive_modes(torch, np, kernels, VioRunner, cfg, sq, undistort: bool, label: str,
-                chunk: int):
+                chunk: int, pipelined: bool = False):
     """The slice through ``VioRunner.run`` in three modes on one stream:
     eager (``graph=False``, the reference), one CUDA graph a frame (the main
     path) and ``chunk`` frames a graph.  Each runner is warmed up first (the
@@ -249,33 +300,53 @@ def drive_modes(torch, np, kernels, VioRunner, cfg, sq, undistort: bool, label: 
     a chunk and one tail frame) and reset; the counters are set to 0 just
     before each run and read just after.  The graphed runs must equal the
     eager one bit for bit (trajectory, num_matches, run_ok, final K and
-    g_est) with the same launch counts.  Returns a dict (each mode's
-    RunResult, ms/frame and final (K, g_est); the graph run's launches) or
-    an error message."""
+    g_est) with the same launch counts.  With ``pipelined``, also ``chunk``
+    frames a step in the pipelined mode (the threshold held for each chunk:
+    another trajectory, held to its own golden by the caller), eager and a
+    graph a chunk: the graphed run must equal the eager pipelined run bit
+    for bit, with the same launch counts; its deviation from the exact
+    chunk is reported.  Returns a dict (each mode's RunResult, ms/frame and
+    final (K, g_est); the graph run's launches) or an error message."""
     out, counts = {}, {}
-    for mode, graph, ch in (("eager", False, 0), ("graph", True, 0), ("chunk", True, chunk)):
+    modes = [("eager", False, 0, False), ("graph", True, 0, False), ("chunk", True, chunk, False)]
+    if pipelined:
+        modes += [("pipelined_eager", False, chunk, True), ("pipelined", True, chunk, True)]
+    for mode, graph, ch, pipe in modes:
         r = VioRunner(cfg, undistort=undistort, device="cuda", graph=graph)
-        r.run(prefix(sq, ch + 1 if ch else 1), chunk=ch)
+        r.run(prefix(sq, ch + 1 if ch else 1), chunk=ch, pipelined=pipe)
         r.reset()
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        out[mode] = r.run(sq, chunk=ch)        # ends in the one readback
+        out[mode] = r.run(sq, chunk=ch, pipelined=pipe)        # ends in the one readback
         out[mode + "_ms"] = (time.perf_counter() - t0) / len(sq.images) * 1e3
         counts[mode] = dict(kernels.LAUNCHES)
         out[mode + "_state"] = (float(r.state.K), r.state.sab_state.g_est.cpu().numpy())
-    same = {m: same_run(np, out[m], out["eager"])
-            and out[m + "_state"][0] == out["eager_state"][0]
-            and np.array_equal(out[m + "_state"][1], out["eager_state"][1])
-            for m in ("graph", "chunk")}
-    print(json.dumps({"check": f"{label}: VioRunner eager vs graph vs {chunk} frames a graph",
-                      "frames": len(sq.images), "ms_per_frame_eager": out["eager_ms"],
-                      "ms_per_frame_graph": out["graph_ms"],
-                      "ms_per_frame_chunk": out["chunk_ms"],
-                      "bit_identical_to_eager": same, "launches": counts}), flush=True)
-    for m in ("graph", "chunk"):
+    # each graphed mode and the eager run of its own semantics
+    pairs = {"graph": "eager", "chunk": "eager"}
+    if pipelined:
+        pairs["pipelined"] = "pipelined_eager"
+    same = {m: same_run(np, out[m], out[e]) and out[m + "_state"][0] == out[e + "_state"][0]
+            and np.array_equal(out[m + "_state"][1], out[e + "_state"][1])
+            for m, e in pairs.items()}
+    rec = {"check": f"{label}: VioRunner eager vs graph vs {chunk} frames a graph"
+                    + (" (and pipelined, eager vs graphed)" if pipelined else ""),
+           "frames": len(sq.images), "ms_per_frame_eager": out["eager_ms"],
+           "ms_per_frame_graph": out["graph_ms"], "ms_per_frame_chunk": out["chunk_ms"],
+           "bit_identical_to_eager": same, "launches": counts}
+    if pipelined:
+        a, b = out["chunk"], out["pipelined"]
+        rel = np.abs(a.num_matches[1:] - b.num_matches[1:]) / np.maximum(a.num_matches[1:], 1)
+        rec.update(ms_per_frame_pipelined=out["pipelined_ms"],
+                   ms_per_frame_pipelined_eager=out["pipelined_eager_ms"],
+                   pipelined_vs_chunk=dict(max_pos_abs_m=float(np.abs(b.position
+                                                                      - a.position).max()),
+                                           max_match_rel=float(rel.max())))
+    print(json.dumps(rec), flush=True)
+    for m, e in pairs.items():
         if not same[m]:
-            return f"{label}: the {m} run differs from the eager run"
+            return f"{label}: the {m} run differs from the {e} run"
+    for m in counts:
         if counts[m] != counts["eager"]:
             return f"{label}: {m} launch counts {counts[m]} differ from eager {counts['eager']}"
     out["launches"], out["ms"] = counts["graph"], out["graph_ms"]
@@ -400,6 +471,43 @@ def check_minimize_vel(torch, kernels, label, args):
     return rec, (f"minimize_vel ({label}): {bad} out of tolerance: {err}" if bad else None)
 
 
+def vio_golden_check(np, ev, res, K_fin, g_fin, path, bounds, n: int):
+    """(record, failed checks) of a VIO run's first ``n`` frames against a
+    JAX golden with final K and g_est (``read_vio_golden``) at ``bounds``
+    (keys as VIO_BOUNDS); the golden's K and g_est are final only when
+    ``n`` is its length."""
+    g, gK, gg = read_vio_golden(path)
+    full = n == len(g)
+    g = g[:n]
+    rel = np.abs(res.num_matches[1:n] - g[1:, 7]) / g[1:, 7]
+    rec = {"golden": path.name, "frames": n,
+           "cross_ate_sim3_m": ev.ate_rmse(res.position[:n], g[:, 4:7]),
+           "cross_ate_rigid_m": ev.ate_rmse(res.position[:n], g[:, 4:7], with_scale=False),
+           "max_match_rel_diff": float(rel.max()), "K": K_fin, "K_golden": gK,
+           "g_est": np.asarray(g_fin).tolist(), "g_est_golden": gg.tolist(), "bounds": bounds}
+    checks = [(rec["cross_ate_sim3_m"] < bounds["ate_sim3_m"], "sim3 cross-ATE"),
+              (rec["cross_ate_rigid_m"] < bounds["ate_rigid_m"], "rigid cross-ATE"),
+              (rel.max() <= bounds["match_rtol"] and res.num_matches[0] == 0, "num_matches")]
+    if full:
+        checks += [(abs(K_fin - gK) <= bounds["K_abs"], "final K"),
+                   (np.abs(np.asarray(g_fin) - gg).max() <= bounds["g_est_abs"], "final g_est")]
+    return rec, [what for ok, what in checks if not ok]
+
+
+def vo_golden_check(np, ev, res, path):
+    """(record, failed checks) of a VO run against a JAX golden at phase 3's
+    bounds (ATE_BOUND_M, MATCH_RTOL)."""
+    g = np.loadtxt(path)
+    rel = np.abs(res.num_matches[1:] - g[1:, 7]) / g[1:, 7]
+    rec = {"golden": path.name, "frames": len(g),
+           "cross_ate_sim3_m": ev.ate_rmse(res.position, g[:, 4:7]),
+           "max_match_rel_diff": float(rel.max()),
+           "bounds": dict(ate_sim3_m=ATE_BOUND_M, match_rtol=MATCH_RTOL)}
+    checks = [(rec["cross_ate_sim3_m"] < ATE_BOUND_M, "sim3 cross-ATE"),
+              (rel.max() <= MATCH_RTOL and res.num_matches[0] == 0, "num_matches")]
+    return rec, [what for ok, what in checks if not ok]
+
+
 def read_vio_golden(path):
     """(table [N, 8], final K, final g_est [3]) of the JAX VIO golden."""
     import numpy as np
@@ -505,7 +613,7 @@ def smoke(np, torch, jobs) -> int:
     # with the SAB filter engaged (num_frames > 4 + init_bias_frame_num)
     captured = {}
     step_names = ["att_flood", "minimize_vel", "tube_match", "match_reg_ekf", "estimate_bias"]
-    originals = {name: getattr(kernels, name) for name in step_names}
+    originals = {name: getattr(kernels, name) for name in step_names + ["reg_ekf"]}
     solve_maps, chol_inputs = [], []     # (old map, field) of each LM solve; chol_inverse's inputs
     seed_calls = []                      # distance_field.seed_stack_dense's inputs, one a frame
     stage_calls = []                     # matching.match_and_update_depth's (args, kwargs, out)
@@ -557,7 +665,9 @@ def smoke(np, torch, jobs) -> int:
         for name in names:
             if name != "att_flood":
                 del captured[name][n_calls[name]]
-        del solve_maps[n_solve], stage_calls[n_stage]
+        del solve_maps[n_solve]
+        if len(stage_calls) > n_stage:          # the tube path's fused stage
+            del stage_calls[n_stage]
         return r
 
     vo_names = [n for n in step_names if n != "estimate_bias"]
@@ -565,6 +675,16 @@ def smoke(np, torch, jobs) -> int:
     engaged_call = 4 + vcfg.imu.init_bias_frame_num   # call i runs at frame i + 1
     vo_solve = solve_maps[0]                        # frame 0's map rotated, frame 1's field
     capture(["estimate_bias"], vcfg, vseq, engaged_call + 2, undistort=True)
+    # the reference-semantics path (phase 8): K2 on the raster table, K5 alone
+    # after the walk, frame 1 of the VO stream
+    rw_cfg = PipelineConfig(use_imu=False, df_mode="raster", matcher="walk")
+    n_mv = len(captured["minimize_vel"])
+    capture(["minimize_vel", "reg_ekf"], rw_cfg, seq, 2, undistort=False)
+    rw_solve, rw_reg = captured["minimize_vel"][n_mv], captured["reg_ekf"][0]
+    n_px = rw_cfg.camera.rows * rw_cfg.camera.cols
+    if rw_solve[6].shape != (8, n_px) or rw_solve[7].field_scale != 1:
+        return fail(f"the raster table's solve: att {tuple(rw_solve[6].shape)}, "
+                    f"field_scale {rw_solve[7].field_scale}")
     missing = set(step_names) - set(captured)
     if missing:
         return fail(f"the slices never called {sorted(missing)}")
@@ -615,6 +735,7 @@ def smoke(np, torch, jobs) -> int:
     cases["try_vel"].append(("random vel/residuals", tuple(a)))
     cases["minimize_vel"].append(("frame 1, random starting velocity",
                                   (*mv[:5], a[6], *mv[6:])))
+    cases["minimize_vel"].append(("raster table 480x752 (R+W), frame 1", rw_solve))
     a = list(captured["tube_match"][0])
     th = rng.uniform(-0.05, 0.05)
     a[3] = on_dev(np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]],
@@ -654,6 +775,7 @@ def smoke(np, torch, jobs) -> int:
     a[0] = on_dev(rng.uniform(0.05, 3.0, K).astype(np.float32))     # rho
     a[12] = on_dev(rng.normal(0, 0.02, 3).astype(np.float32))      # vel
     cases["reg_ekf"].append(("random depths/vel", tuple(a)))
+    cases["reg_ekf"].append(("walk-matched map (R+W), frame 1", rw_reg))
     cases["estimate_bias"] += sab_random_cases(dev, kernels, recorder, originals, captured,
                                                vcfg.imu.sab_iterations)
 
@@ -1284,8 +1406,119 @@ def smoke(np, torch, jobs) -> int:
                           "run_ok_all": bool(res.run_ok.all()),
                           "min_matches_from_frame_2": least_seen, "least_matches": least}),
               flush=True)
+        if name != "seed0":
+            continue
+        # the seed-0 run against the fast profile's JAX golden, and in the ATE
+        # band of tests/test_fast_profile.py:17-32 against phase 4's run (the
+        # default profile) over the same 60 frames: below max(1.5 x the
+        # default's ATE against ground truth, 0.05 x the span)
+        rec, bad = vio_golden_check(np, ev, res, float(fr.state.K),
+                                    fr.state.sab_state.g_est.cpu().numpy(), FAST_GOLDEN,
+                                    FAST_BOUNDS, FAST_N)
+        gt = sq.gt_pos[:FAST_N]
+        span = float(np.linalg.norm(gt[-1] - gt[0]))
+        band = dict(ate_fast_m=ev.ate_rmse(res.position, gt),
+                    ate_default_m=ev.ate_rmse(vmodes["graph"].position[:FAST_N], gt),
+                    span_m=span)
+        band["bound_m"] = max(1.5 * band["ate_default_m"], 0.05 * span)
+        print(json.dumps({"check": "fast profile seed 0 (60 VIO frames) vs its JAX golden and "
+                                   "tests/test_fast_profile.py's ATE band", **rec,
+                          "failed": bad, "band": band}), flush=True)
+        if bad or not band["ate_fast_m"] < band["bound_m"]:
+            anchors_ok = False
     if not anchors_ok:
-        return fail("an anchor missed its bound against the reference binary")
+        return fail("an anchor missed its bound against the reference binary or a JAX golden")
+    # the band on tests/test_fast_profile.py's own stream: 16 VO frames of
+    # synthetic seed 0, both profiles vision-only.  Reported: JAX's own
+    # Pallas path misses it on the CPU (`python tests/test_torch_raster_walk.py
+    # vo`: fast 0.0233 m against a bound of 0.0226), its XLA path meets it
+    seq16 = prefix(seq, FAST_BAND_VO_N)
+    vo16 = {}
+    for key, c in (("default", cfg), ("fast", fast_profile(use_imu=False))):
+        vo16[key] = ev.ate_rmse(VioRunner(c, undistort=False, device="cuda").run(seq16).position,
+                                seq16.gt_pos)
+    span16 = float(np.linalg.norm(seq16.gt_pos[-1] - seq16.gt_pos[0]))
+    print(json.dumps({"check": "tests/test_fast_profile.py's ATE band, 16 VO frames (reported)",
+                      "ate_default_m": vo16["default"], "ate_fast_m": vo16["fast"],
+                      "bound_m": max(1.5 * vo16["default"], 0.05 * span16),
+                      "within": vo16["fast"] < max(1.5 * vo16["default"], 0.05 * span16)}),
+          flush=True)
+
+    # ---------------- phase 8: the reference-semantics step (rasterized field,
+    # pixel-walk matcher) and the pipelined chunk
+    for label, c, sq, undist, ch, golden, pipe_golden in (
+            ("R+W VO", rw_cfg, seq, False, VO_CHUNK, RW_VO_GOLDEN, RW_VO_PIPE_GOLDEN),
+            ("R+W VIO", PipelineConfig(df_mode="raster", matcher="walk"),
+             prefix(vseq, RW_N_VIO), True, VIO_CHUNK, RW_VIO_GOLDEN, RW_VIO_PIPE_GOLDEN)):
+        modes = drive_modes(torch, np, kernels, VioRunner, c, sq, undistort=undist, label=label,
+                            chunk=ch, pipelined=True)
+        if isinstance(modes, str):
+            return fail(modes)
+        n = len(sq.images)
+        launches = modes["launches"]
+        vio = c.use_imu
+        want = {**{k: 0 for k in launches}, "minimize_vel": n, "reg_ekf": n,
+                "chol_inverse": 3 * n if vio else n, "estimate_bias": n if vio else 0}
+        if launches != want:
+            return fail(f"{label} launch counts {launches}, expected {want}")
+        for mode, path in (("graph", golden), ("pipelined", pipe_golden)):
+            res = modes[mode]
+            if res.position.shape != (n, 3) or not np.isfinite(res.position).all():
+                return fail(f"{label} ({mode}): trajectory not finite or of the wrong shape")
+            if not res.run_ok.all():
+                return fail(f"{label} ({mode}): run_ok dropped at frame "
+                            f"{int(np.argmin(res.run_ok))}")
+            if vio:
+                rec, bad = vio_golden_check(
+                    np, ev, res, *modes[mode + "_state"], path,
+                    VIO_BOUNDS if mode == "graph" else RW_VIO_PIPE_BOUNDS, n)
+                ref = np.loadtxt(REF_GOLDEN)[: n - 1, 4:7]
+                gt = sq.gt_pos[1:n]
+                rec.update(ref_cross_ate_sim3_m=ev.ate_rmse(res.position[1:n], ref),
+                           ate_gt_m=ev.ate_rmse(res.position[1:n], gt),
+                           ref_ate_gt_m=ev.ate_rmse(ref, gt))
+                # the streaming run's R+W meets the reference bound in JAX on the
+                # CPU (sim3 0.0318 m Pallas, 0.0334 XLA; `python
+                # tests/test_torch_raster_walk.py vio`): held there
+                if mode == "graph" and not rec["ref_cross_ate_sim3_m"] < REF_ATE_BOUND_M:
+                    bad.append("sim3 cross-ATE vs the reference binary's golden")
+                if mode == "graph" and not rec["ate_gt_m"] < rec["ref_ate_gt_m"] + REF_GT_MARGIN_M:
+                    bad.append("ATE vs ground truth against the reference binary's")
+            else:
+                rec, bad = vo_golden_check(np, ev, res, path)
+            print(json.dumps({"slice": f"{label} ({mode}): PipelineConfig(df_mode='raster', "
+                                       "matcher='walk'), 752x480 K=16000", "card": card,
+                              "ms_per_frame": {m: modes[m + "_ms"] for m in
+                                               ("eager", "graph", "chunk", "pipelined_eager",
+                                                "pipelined")},
+                              **rec, "failed": bad, "num_matches": res.num_matches.tolist(),
+                              "launches": launches}), flush=True)
+            if bad:
+                return fail(f"{label} ({mode}): {bad} out of bounds against the JAX golden")
+        if vio:
+            # the eager R+W VIO step under set_sync_debug_mode("error")
+            er = VioRunner(c, undistort=True, device="cuda", graph=False)
+            er.process_frame(sq.images[0], int(sq.ts_us[0]), sq.imu_ts_us[:0],
+                             sq.imu_gyro[:0], sq.imu_acc[:0])
+            er.reset()
+            torch.cuda.synchronize()
+            rows = []
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for i in range(NO_SYNC):
+                    rows.append(er.process_frame(sq.images[i], int(sq.ts_us[i]), sq.imu_ts_us,
+                                                 sq.imu_gyro, sq.imu_acc))
+            except RuntimeError as e:
+                return fail(f"the eager R+W VIO step synced the host: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            pos = torch.stack([o.position for o in rows]).cpu().numpy()
+            same = bool(np.array_equal(pos, modes["eager"].position[:NO_SYNC]))
+            print(json.dumps({"check": "no host sync: the eager R+W VIO step, frames "
+                                       f"0..{NO_SYNC - 1}, set_sync_debug_mode('error')",
+                              "positions_equal_the_eager_run": same}), flush=True)
+            if not same:
+                return fail("the no-sync eager R+W VIO frames differ from the eager run")
 
     # each kernel's count on the path that runs it: the VIO slice, the loop
     # closure (att_field), the field tool (nn_field), the single-pass drive

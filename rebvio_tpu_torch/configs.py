@@ -206,6 +206,13 @@ class PipelineConfig:
         return self.detector.keylines_max
 
 
+def default_df_mode(matcher: str, df_mode: str | None = None) -> str:
+    """The auxiliary field for ``matcher``: ``df_mode`` where one is given,
+    else the jump-flood field for the tube matcher and the reference's
+    rasterized field for the pixel walk (rebvio_tpu/run.py's rule)."""
+    return df_mode or ("jfa" if matcher == "tube" else "raster")
+
+
 def fast_profile(**overrides) -> PipelineConfig:
     """Throughput-oriented full-resolution profile.
 

@@ -2,7 +2,9 @@
 field: dense seeding from the detector planes and the jump flood (kernel
 K1, kernels.att_flood), or scatter seeding from the keyline table and the
 same flood (kernel K1b, kernels.att_field).  The id-only field: the
-exact-metric flood of kernel K7 (kernels.nn_field)."""
+exact-metric flood of kernel K7 (kernels.nn_field).  The reference's own
+field (``df_mode="raster"``): gradient rays rasterized with one scatter-min
+(build_distance_field, field_id)."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from rebvio_tpu_torch.ops import kernels
 ATT_PACKED, ATT_D2, ATT_ID, ATT_GX, ATT_GY, ATT_GN, ATT_POSX, ATT_POSY = range(8)
 
 BIG = 1e9
+_EMPTY = torch.iinfo(torch.int32).max
 
 
 def _round_half_away(x: torch.Tensor) -> torch.Tensor:
@@ -143,3 +146,43 @@ def build_nn_field(em, search_range: int, rows: int, cols: int, scale: int = 1) 
     frows, fcols, sr = field_geometry(search_range, rows, cols, scale)
     pos = em.pos if scale == 1 else em.pos / torch.full_like(em.pos, float(scale))
     return kernels.nn_field(pos.contiguous(), keyline_gate(em), sr, frows, fcols)
+
+
+def build_distance_field(em, search_range: int, rows: int, cols: int) -> torch.Tensor:
+    """The reference's rasterized field (DistanceField::build, core.hpp:37-59):
+    each gated keyline writes 2R samples along its unit gradient, at offsets
+    -R..R-1, each rounded half away from zero.  Returns a packed
+    ``[rows*cols]`` int32 field: -1 where empty, else ``dist * kmax + (kmax -
+    1 - id)`` of the nearest sample, ties to the largest id (the sequential
+    loop's last writer).
+
+    One ``scatter_reduce`` "amin" over int32 keys: the min of unique keys
+    does not depend on the order the atomics land in.  A sample off the
+    image or of a gated-out keyline goes to a dump cell of its keyline past
+    the field (sent to one shared cell, they would serialize on one
+    address)."""
+    kmax = em.kmax
+    dev = em.pos.device
+    use = keyline_gate(em)
+    gn = torch.where(em.grad_norm > 0, em.grad_norm, 1.0)
+    ux = em.grad[:, 0] / gn
+    uy = em.grad[:, 1] / gn
+    r = torch.arange(-search_range, search_range, dtype=torch.float32, device=dev)
+    col = _round_half_away(ux[:, None] * r[None, :] + em.pos[:, 0:1])      # [K, 2R]
+    row = _round_half_away(uy[:, None] * r[None, :] + em.pos[:, 1:2])
+    inb = (row >= 0) & (row < rows) & (col >= 0) & (col < cols) & use[:, None]
+    n = rows * cols
+    ids = torch.arange(kmax, dtype=torch.int64, device=dev)[:, None]
+    # in the field the flat index is exact in float32 (rows * cols < 2^24)
+    cell = torch.where(inb, row * cols + col, 0.0).to(torch.int64)
+    flat = torch.where(inb, cell, n + ids)
+    dist = torch.abs(r).to(torch.int32)[None, :]
+    key = (dist * kmax + (kmax - 1 - ids.to(torch.int32))).expand(flat.shape)
+    field = torch.full((n + kmax,), _EMPTY, dtype=torch.int32, device=dev)
+    field = field.scatter_reduce(0, flat.reshape(-1), key.reshape(-1), reduce="amin")[:n]
+    return torch.where(field == _EMPTY, -1, field)
+
+
+def field_id(field: torch.Tensor, kmax: int) -> torch.Tensor:
+    """Keyline id of a packed field entry; -1 where empty."""
+    return torch.where(field < 0, -1, kmax - 1 - field % kmax)

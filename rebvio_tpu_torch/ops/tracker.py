@@ -2,7 +2,8 @@
 linear refinement and the per-keyline depth update (rebvio_tpu/ops/
 tracker.py; reference core.cpp).  The LM solve with all its tryVel passes is
 kernel K2 (kernels.minimize_vel; kernels.try_vel is its single pass) and the
-depth stage is kernel K5 (kernels.reg_ekf)."""
+depth stage is kernel K5 (kernels.reg_ekf).  The reference's raster id field
+reaches K2 through ``raster_att``, a table in the attribute field's layout."""
 
 from __future__ import annotations
 
@@ -24,6 +25,25 @@ def _use_mask(old: T.EdgeMap, sigma_rho_min) -> torch.Tensor:
     use = old.valid & (old.sigma_rho <= sigma_rho_min)
     use = use & ((old.threshold <= 0.0) | (old.grad_norm >= old.threshold))
     return use.to(f32)
+
+
+def raster_att(new: T.EdgeMap, field_ids: torch.Tensor) -> torch.Tensor:
+    """The id-field route of tryVel (rebvio_tpu/ops/tracker.py:146-160,
+    ``use_att=False``) as a ``[8, N]`` table in the attribute field's plane
+    layout, for kernel K2 at ``field_scale`` 1: plane ATT_ID holds the field's
+    id as float32 (-1: empty), planes ATT_GX..ATT_POSY the target keyline's
+    grad, grad_norm and pos (pack_target_fields) gathered at the id clipped
+    to the target map's size.  K2 reads planes 2-7 only; planes 0-1 are
+    zero.  Per cell this is exactly JAX's two chained gathers: a negative id
+    never matches, so the clipped row it reads is never used."""
+    N = field_ids.shape[0]
+    att = torch.empty((8, N), dtype=f32, device=field_ids.device)
+    att[:2] = 0.0
+    att[2] = field_ids.to(f32)
+    pack = torch.stack([new.grad[:, 0], new.grad[:, 1], new.grad_norm, new.pos[:, 0],
+                        new.pos[:, 1]])
+    att[3:] = pack[:, torch.clamp(field_ids, 0, new.kmax - 1).to(torch.int64)]
+    return att
 
 
 def try_vel(old: T.EdgeMap, att: torch.Tensor, vel, sigma_rho_min, residuals,

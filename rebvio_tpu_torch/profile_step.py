@@ -1,12 +1,15 @@
 """Where the time of the step goes on the GPU.
 
     python -m rebvio_tpu_torch.profile_step [--vio] [--graph] [--frames 8] [--out FILE]
+        [--matcher walk]
 
 Runs the parity-profile VO slice (752x480, 16000 keylines, 8 tube probes)
 over synthetic seed 0, or with ``--vio`` the VIO slice (``PipelineConfig()``:
 IMU, SAB filter, undistortion) over the distorted seed-0 reference-anchor
 stream, through ``VioRunner.process_frame``: eager, or with ``--graph`` one
-CUDA graph replay a frame.  Warm-up frames (2; with ``--vio`` up to the first
+CUDA graph replay a frame.  ``--matcher walk`` profiles the
+reference-semantics step (the pixel walk on the rasterized field; the field
+follows the matcher, as in run.py).  Warm-up frames (2; with ``--vio`` up to the first
 frame with the SAB filter engaged), then ``--frames`` frames under
 ``torch.profiler``, then the
 same number again under ``torch.cuda.set_sync_debug_mode`` to count the
@@ -27,7 +30,7 @@ from collections import defaultdict
 
 import torch
 
-from rebvio_tpu_torch.configs import CameraConfig, PipelineConfig
+from rebvio_tpu_torch.configs import CameraConfig, PipelineConfig, default_df_mode
 from rebvio_tpu_torch.data import synthetic
 from rebvio_tpu_torch.runner import VioRunner
 
@@ -56,16 +59,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--graph", action="store_true",
                     help="replay the step as a CUDA graph (default: eager)")
     ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--matcher", choices=["tube", "walk"], default="tube")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a GPU (torch.cuda.is_available() is False)")
 
+    variant = dict(matcher=args.matcher, df_mode=default_df_mode(args.matcher))
     if args.vio:
-        cfg = PipelineConfig()
+        cfg = PipelineConfig(**variant)
         warm = 4 + cfg.imu.init_bias_frame_num + 2   # first frame with SAB engaged: 16
     else:
-        cfg = PipelineConfig(use_imu=False)
+        cfg = PipelineConfig(use_imu=False, **variant)
         warm = 2
     n = warm + 2 * args.frames
     seq = synthetic.generate(CameraConfig(), n_frames=n, seed=0, distort=args.vio,
@@ -119,6 +124,7 @@ def main(argv=None) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out = {
         "slice": "vio" if args.vio else "vo",
+        "variant": variant,
         "mode": "graph" if args.graph else "eager",
         "device": torch.cuda.get_device_name(0),
         "frames": args.frames,

@@ -4,6 +4,7 @@
     python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --pose-graph
     python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --chunk 8
     python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --realtime 1.0
+    python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --matcher walk
 
 Runs on the GPU unless ``--device cpu`` is given; there the step is one CUDA
 graph a frame (``--chunk N``: a graph of N frames).  Writes a
@@ -11,9 +12,11 @@ reference-format odometry file on request and prints one JSON line with the
 frame rate and the ATE against the synthetic ground truth; with
 ``--pose-graph`` also the keyframe pose graph's loop factors, cost and ATE
 before and after the optimization; with ``--realtime`` the processed and
-dropped frames and the worst latency.  Only what the port implements is
-offered: argparse rejects every other flag of the JAX runner
-(``--chunk-mode pipelined`` among them).
+dropped frames and the worst latency.  ``--matcher walk`` runs the
+reference's semantics (the pixel-walk matcher on the rasterized field, unless
+``--df-mode jfa``); ``--chunk-mode pipelined`` holds the detection threshold
+for each chunk.  Only what the port implements is offered: argparse rejects
+every other flag of the JAX runner (``--ba`` among them).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from rebvio_tpu_torch import eval as ev
 from rebvio_tpu_torch.configs import (CameraConfig, CoreConfig, EdgeDetectorConfig,
-                                      PipelineConfig)
+                                      PipelineConfig, default_df_mode)
 from rebvio_tpu_torch.runner import RunResult, VioRunner
 
 PRESETS = {
@@ -44,12 +47,13 @@ PRESETS = {
 }
 
 
-def preset_config(preset: str, use_imu: bool) -> PipelineConfig:
+def preset_config(preset: str, use_imu: bool, **variants) -> PipelineConfig:
+    """The preset's PipelineConfig; ``variants``: ``df_mode``, ``matcher``."""
     if preset == "euroc":
-        return PipelineConfig(use_imu=use_imu)
+        return PipelineConfig(use_imu=use_imu, **variants)
     cam, det, core = PRESETS[preset]
     return PipelineConfig(camera=CameraConfig(**cam), detector=EdgeDetectorConfig(**det),
-                          core=CoreConfig(**core), use_imu=use_imu)
+                          core=CoreConfig(**core), use_imu=use_imu, **variants)
 
 
 def main(argv=None):
@@ -81,6 +85,17 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=0,
                     help="frames per replay (exact mode: the same results as streaming; "
                          "0/1 = streaming, one replay per frame)")
+    ap.add_argument("--chunk-mode", choices=["pipelined", "exact"], default="exact",
+                    help="pipelined = the chunk's detections at one threshold, taken ahead "
+                         "of its estimates (the threshold controller updates once per "
+                         "chunk); exact = per-frame streaming semantics")
+    ap.add_argument("--matcher", choices=["tube", "walk"], default="tube",
+                    help="epipolar matcher: the tube probe of the jump-flood field or the "
+                         "reference's pixel walk")
+    ap.add_argument("--df-mode", choices=["jfa", "raster"], default=None,
+                    help="auxiliary field: the jump-flood attribute field (the default "
+                         "with --matcher tube) or the reference's rasterized field (the "
+                         "default with --matcher walk)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default) runs the hand-written kernels on the GPU and "
                          "fails without one; cpu runs their plain PyTorch versions")
@@ -92,7 +107,12 @@ def main(argv=None):
         ap.error("--realtime is a streaming mode (no --pose-graph/--chunk)")
     if args.chunk and args.pose_graph:
         ap.error("--chunk with --pose-graph needs run_mapped, not ported yet")
-    config = preset_config(args.preset, use_imu=(args.mode == "vio"))
+    df_mode = default_df_mode(args.matcher, args.df_mode)
+    if args.matcher == "tube" and df_mode != "jfa":
+        ap.error("--matcher tube requires --df-mode jfa")
+    pipelined = args.chunk_mode == "pipelined"
+    config = preset_config(args.preset, use_imu=(args.mode == "vio"), matcher=args.matcher,
+                           df_mode=df_mode)
     seq = synthetic.generate(config.camera, n_frames=args.frames, seed=args.seed)
     gt = seq.gt_pos
     runner = VioRunner(config, undistort=False, device=args.device)
@@ -111,7 +131,8 @@ def main(argv=None):
                          np.asarray([], dtype=np.int64), np.zeros((0, 3)), np.zeros((0, 3)))
     if args.chunk > 1:
         runner.run(dataclasses.replace(seq, images=seq.images[:args.chunk],
-                                       ts_us=seq.ts_us[:args.chunk]), chunk=args.chunk)
+                                       ts_us=seq.ts_us[:args.chunk]), chunk=args.chunk,
+                   pipelined=pipelined)
     runner.reset()
     if on_gpu:
         torch.cuda.synchronize()
@@ -122,7 +143,7 @@ def main(argv=None):
         rt = runner.run_realtime(seq, speed=args.realtime, queue_size=args.rt_queue)
         res = rt.result
     elif mapper is None:
-        res = runner.run(seq, chunk=args.chunk)
+        res = runner.run(seq, chunk=args.chunk, pipelined=pipelined)
     else:
         rows = []
         for i in range(len(seq.images)):

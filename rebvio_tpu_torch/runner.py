@@ -10,15 +10,17 @@ from a pinned staging ring: ``run`` uploads frame i+1 before it replays
 step i.  ``graph=False`` runs the same functions eagerly (the reference the
 graph is held to); on the CPU they always run eagerly.  Modes, as in the JAX
 runner: streaming (``run``, ``process_frame``), exact chunks
-(``run(seq, chunk=N)``: N steps in one replay) and paced
-(``run_realtime``)."""
+(``run(seq, chunk=N)``: N steps in one replay), pipelined chunks
+(``run(seq, chunk=N, pipelined=True)``: N detections at the chunk's
+threshold, then N estimates, in one replay) and paced (``run_realtime``)."""
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +30,7 @@ from rebvio_tpu_torch import types as T
 from rebvio_tpu_torch.camera import Undistorter
 from rebvio_tpu_torch.configs import PipelineConfig
 from rebvio_tpu_torch.graph import SlotLayout, StepProgram, copy_tree_, odometry_view
-from rebvio_tpu_torch.pipeline import frontend_matrices, step_chunk
+from rebvio_tpu_torch.pipeline import frontend_matrices, step_chunk, step_chunk_pipelined
 
 
 # staging slots per program: run_realtime's default of 3 frames in flight,
@@ -79,7 +81,8 @@ class VioRunner:
         self._init_state = T.init_vio_state(config, self.device)
         # with a graph, the static state: updated in place by every replay
         self.state = T.tree_map(torch.clone, self._init_state)
-        self._programs: Dict[int, StepProgram] = {}
+        # (frames per replay, pipelined) -> program
+        self._programs: Dict[Tuple[int, bool], StepProgram] = {}
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.last_event: Optional[torch.cuda.Event] = None
         self._last_ts: Optional[int] = None
@@ -95,14 +98,16 @@ class VioRunner:
         self._last_ts = None
         self._imu_cursor = 0
 
-    def _steps(self, state, raw, imu, dts):
-        """Undistortion (or the cast and gain) and ``pipeline.step_chunk``
-        over a slot's frames: what one replay runs."""
+    def _frames(self, raw):
         if self.undistorter is not None:
-            frames = torch.stack([self.undistorter(raw[k]) for k in range(raw.shape[0])])
-        else:
-            frames = raw.to(torch.float32) * self.config.image_gain
-        return step_chunk(state, frames, imu, dts, self.config, self.mats)
+            return torch.stack([self.undistorter(raw[k]) for k in range(raw.shape[0])])
+        return raw.to(torch.float32) * self.config.image_gain
+
+    def _steps(self, state, raw, imu, dts, fn=step_chunk):
+        """Undistortion (or the cast and gain) and ``fn``
+        (``pipeline.step_chunk`` or ``step_chunk_pipelined``) over a slot's
+        frames: what one replay runs."""
+        return fn(state, self._frames(raw), imu, dts, self.config, self.mats)
 
     def _frame_inputs(self, image, ts_us: int, imu_ts, imu_gyro, imu_acc):
         """(image, gyro, acc, ts, dt) of one frame: the IMU samples since the
@@ -115,17 +120,20 @@ class VioRunner:
         self._last_ts = ts_us
         return image, imu_gyro[c:j], imu_acc[c:j], imu_ts[c:j], dt
 
-    def _stage(self, frames):
+    def _stage(self, frames, pipelined: bool = False):
         """Stage the frames' inputs (a list of ``_frame_inputs``) in a slot of
-        the program for their count.  Returns (program, slot)."""
-        n = len(frames)
-        prog = self._programs.get(n)
+        the program for their count (and mode).  Returns (program, slot)."""
+        key = (len(frames), pipelined)
+        prog = self._programs.get(key)
         if prog is None:
             image = np.asarray(frames[0][0])
-            layout = SlotLayout(n, image.shape, image.dtype, self.config.imu.sample_max)
-            prog = StepProgram(self._steps, layout, self.device, RING_SLOTS, self.graph,
+            layout = SlotLayout(len(frames), image.shape, image.dtype,
+                                self.config.imu.sample_max)
+            fn = functools.partial(self._steps,
+                                   fn=step_chunk_pipelined if pipelined else step_chunk)
+            prog = StepProgram(fn, layout, self.device, RING_SLOTS, self.graph,
                                self._copy_stream)
-            self._programs[n] = prog
+            self._programs[key] = prog
         return prog, prog.stage(frames)
 
     def _run(self, prog: StepProgram, k: int) -> torch.Tensor:
@@ -149,21 +157,24 @@ class VioRunner:
         replay per frame, frame i+1 staged and uploaded before step i is
         launched.  ``chunk`` > 1: ``chunk`` frames per replay
         (``pipeline.step_chunk``, exact mode: the same results as
-        streaming), the tail frames through the per-frame program.  The
+        streaming; with ``pipelined``, ``pipeline.step_chunk_pipelined``:
+        the threshold held for the chunk), the tail frames through the
+        per-frame program, as JAX's ``_run_chunked`` streams them.  The
         odometry is read back once, at the end."""
-        if pipelined:
-            raise NotImplementedError(
-                "run(pipelined=True) (step_chunk_pipelined) is not ported yet: ROADMAP.md "
-                "Queue 1 item 5")
         n = len(seq.images)
         size = chunk if chunk and chunk > 1 else 1
-        groups = [range(lo, lo + size) for lo in range(0, n - n % size, size)]
-        groups += [range(i, i + 1) for i in range(n - n % size, n)]
+        pipe = pipelined and size > 1
+        groups = [(range(lo, lo + size), pipe) for lo in range(0, n - n % size, size)]
+        groups += [(range(i, i + 1), False) for i in range(n - n % size, n)]
+
+        def stage(g):
+            idx, mode = groups[g]
+            return self._stage([self._seq_frame(seq, i) for i in idx], mode)
+
         outs = []
-        staged = self._stage([self._seq_frame(seq, i) for i in groups[0]]) if groups else None
+        staged = stage(0) if groups else None
         for g in range(len(groups)):
-            nxt = (self._stage([self._seq_frame(seq, i) for i in groups[g + 1]])
-                   if g + 1 < len(groups) else None)
+            nxt = stage(g + 1) if g + 1 < len(groups) else None
             outs.append(self._run(*staged))
             staged = nxt
         return _result([int(t) for t in seq.ts_us[:n]], torch.cat(outs))

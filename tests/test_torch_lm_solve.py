@@ -167,7 +167,7 @@ def test_host_read_detector_sees_them():
 # the modules whose per-frame constants no longer go to the device as
 # torch.tensor of Python scalars
 NO_SCALAR_UPLOADS = ("ops/matching.py", "geometry/so3.py", "ops/edge_detect.py", "ops/imu.py",
-                     "pipeline.py")
+                     "pipeline.py", "ops/distance_field.py", "ops/tracker.py")
 
 
 def _scalar_uploads(tree):
@@ -253,10 +253,11 @@ def _nonzero_calls(tree):
             yield node.lineno
 
 
-@pytest.mark.parametrize("rel", OPS_SOURCES)
+@pytest.mark.parametrize("rel", OPS_SOURCES + ["pipeline.py"])
 def test_ops_never_call_nonzero(rel):
-    """ops/ sizes nothing on the host: the detector's compaction is a prefix
-    sum and a binary search at the fixed keylines_max."""
+    """ops/ and pipeline.py size nothing on the host: the detector's
+    compaction and the pixel walk's phase-2 compaction are a prefix sum and a
+    binary search at a fixed size (keylines_max, matching.WALK_CAP)."""
     found = list(_nonzero_calls(ast.parse((PORT / rel).read_text())))
     assert not found, f"{rel}: nonzero at lines {found}"
 

@@ -232,20 +232,28 @@ def test_step_chunk_matches_jax():
 def test_run_chunk_equals_streaming():
     """run(seq, chunk=4) over ten distorted VIO frames (two chunks, then two
     tail frames one by one) is streaming, bit for bit, final state included;
-    the pipelined chunk mode is not ported."""
+    the pipelined chunk mode runs its own program for the chunks and the
+    per-frame one for the tail, and equals step_chunk_pipelined's chunks."""
     _, tc = small_vio_configs()
     seq = tsyn.generate(tc.camera, n_frames=10, seed=0, distort=True, imu_preroll_s=0.1)
     a = VioRunner(tc, undistort=True, device="cpu")
     b = VioRunner(tc, undistort=True, device="cpu")
     ra, rb = a.run(seq), b.run(seq, chunk=4)
-    assert sorted(b._programs) == [1, 4]
+    assert sorted(b._programs) == [(1, False), (4, False)]
     for f in ("ts_us",) + ODO:
         np.testing.assert_array_equal(getattr(rb, f), getattr(ra, f), err_msg=f)
     for x, y in zip(tT.tree_leaves(a.state), tT.tree_leaves(b.state)):
         assert torch.equal(x, y)
     assert ra.run_ok.all() and ra.num_matches[-1] > tc.core.global_min_matches_threshold
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.run(seq, chunk=4, pipelined=True)
+    b.reset()
+    rp = b.run(seq, chunk=4, pipelined=True)
+    assert sorted(b._programs) == [(1, False), (4, False), (4, True)]
+    assert rp.run_ok.all() and rp.num_matches[0] == 0
+    # the threshold held for each chunk: JAX's tolerance against the exact
+    # mode (tests/test_scan_chunk.py)
+    np.testing.assert_allclose(rp.position, ra.position, rtol=1e-3, atol=1e-3)
+    nm_a, nm_p = ra.num_matches[1:], rp.num_matches[1:]
+    assert (np.abs(nm_a - nm_p) <= 0.02 * np.maximum(nm_a, 1)).all(), (nm_a, nm_p)
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +372,7 @@ def test_run_cli_chunk_and_realtime(capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["rt_processed"] + out["rt_dropped"] == 6 and out["frames"] == out["rt_processed"]
     for flags in (["--realtime", "1", "--chunk", "4"], ["--chunk", "4", "--pose-graph"],
-                  ["--chunk-mode", "pipelined"]):
+                  ["--df-mode", "raster", "--matcher", "tube"]):
         with pytest.raises(SystemExit):
             run_mod.main(base + flags)
     capsys.readouterr()

@@ -53,6 +53,37 @@ def small_vio_configs():
     return small_vio_config(jcfg), small_vio_config(tcfg)
 
 
+def variant_configs(vio: bool, df_mode: str, matcher: str):
+    """(JAX, port) small configs, VO (small_config) or VIO
+    (small_vio_config), with the field and matcher variant."""
+    return tuple(dataclasses.replace(small_vio_config(m) if vio else small_config(m),
+                                     df_mode=df_mode, matcher=matcher) for m in (jcfg, tcfg))
+
+
+def jax_windows(seq, n: int, sample_max: int):
+    """The JAX package's packed IMU windows of a sequence's first ``n``
+    frames (the runner's drain rule: samples with ts <= frame ts)."""
+    from rebvio_tpu.ops import imu as jimu
+
+    wins, cursor = [], 0
+    for i in range(n):
+        j = cursor
+        while j < len(seq.imu_ts_us) and seq.imu_ts_us[j] <= seq.ts_us[i]:
+            j += 1
+        wins.append(jimu.pack_imu_window(seq.imu_gyro[cursor:j], seq.imu_acc[cursor:j],
+                                         seq.imu_ts_us[cursor:j], sample_max))
+        cursor = j
+    return wins
+
+
+def empty_window(tc):
+    """The port's empty IMU window for config ``tc``, on the CPU."""
+    from rebvio_tpu_torch.ops.imu import pack_imu_window
+
+    return pack_imu_window(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros(0, np.int64),
+                           tc.imu.sample_max, device="cpu")
+
+
 def use_pallas(monkeypatch, *flags):
     """Force the named Pallas kernels (interpret mode off the TPU) and drop
     jit caches that baked in another choice at trace time."""
