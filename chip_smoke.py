@@ -94,7 +94,24 @@ Phases (any failure exits non-zero):
      torch_golden_rw_vo_pipelined5_euroc_seed0_24.txt,
      torch_golden_rw_vio_pipelined8_euroc_seed0_120.txt) and the reference
      binary's;
-     the eager VIO step over NO_SYNC frames under set_sync_debug_mode("error").
+     the eager VIO step over NO_SYNC frames under set_sync_debug_mode("error");
+  9. mapping at chunk speed and the Schur-complement BA: phase 4's 120 VIO
+     frames through VioRunner.run_mapped(chunk=5) (one CUDA graph of
+     pipeline.step_chunk_traced a chunk, its trace read back once a chunk)
+     with phase 4's KeyframeMapBuilder schedule: the trajectory equal to
+     phase 4's graphed run, the keyframes and stored maps equal to its
+     per-frame mapper's, bit for bit, the launch counts phase 4's, the host
+     waits per chunk counted; build_problem(min_obs=2) and optimize(iters=10,
+     huber_delta=3.0) at full width against the committed JAX golden
+     (tests/data/torch_golden_ba_vio_euroc_seed0_120.json), timed, under
+     set_sync_debug_mode("error"), twice (bit-identical) and at world size 1
+     over NCCL (ba/distributed.py; bit-identical); JAX's own problem of that
+     run (tests/data/torch_golden_ba_problem_seed0_120.npz): every BATerms
+     field, the reduced system and the first step against JAX's, and
+     optimize's history, accept pattern, poses and inverse depths reported
+     beside JAX's; the CLI (run.main) with --ba, with --pose-graph --chunk 8,
+     and --checkpoint-out at frame 60 then --resume over frames 60..119
+     (equal to the 120-frame run's tail and final state bit for bit).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -204,6 +221,55 @@ FAST_ANCHORS = [
     ("noise", "noise", "anchor_ref_trajectory_noise_seed2_120.txt", 0.07, 1500),
     ("blur", "blur", "anchor_ref_trajectory_blur_seed3_120.txt", 0.06, 1500),
 ]
+# Phase 9.  The BA summary against its JAX golden (`python
+# tests/test_torch_ba.py`), each bound twice a spread the golden records:
+# landmarks and RMS before, twice the spread between JAX's two paths (4, 599
+# px); observations, the landmarks' bound times the golden's observations a
+# landmark (~4.7); RMS after and keyframe ATE, twice the larger of that
+# spread and the deviation of JAX's own optimize when only the order of its
+# problem's observations changes (`order_spread`): the full-width problem is
+# ill-conditioned in float32 (cond(S + lam D) ~1e12 at the first step), so
+# its RMS after and ATE move far between equally valid summation orders.
+# The keyframes equal.
+BA_SUMMARY_GOLDEN = REPO / "tests" / "data" / "torch_golden_ba_vio_euroc_seed0_120.json"
+BA_PROBLEM_GOLDEN = REPO / "tests" / "data" / "torch_golden_ba_problem_seed0_120.npz"
+BA_KF_EVERY = 5
+BA_ITERS = 10
+BA_HUBER = 3.0
+
+
+def ba_bounds(golden: dict) -> dict:
+    """The summary's bounds from the BA golden (see above)."""
+    sp, orders, gp = golden["spread"], golden["order_spread"], golden["pallas"]
+    lm = 2 * sp["ba_landmarks"]
+    return dict(ba_landmarks=lm,
+                ba_observations=lm * gp["ba_observations"] / gp["ba_landmarks"],
+                ba_rms_before_px=2 * sp["ba_rms_before_px"],
+                ba_rms_after_px=2 * max(sp["ba_rms_after_px"], orders["ba_rms_after_px"]),
+                ba_ate_sim3=2 * max(sp["ba_ate_sim3"], orders["ba_ate_sim3"]))
+
+
+# JAX's own problem: each quantity's largest error relative to JAX's largest
+# entry, bound twice the larger of the port's error against JAX on the CPU
+# (BA_PARITY_CPU, `ba_parity` run on the CPU) and on the card
+# (BA_PARITY_CARD, an NVIDIA H100 80GB HBM3 at 700 W: its sums in cuBLAS's
+# and the scan's orders; the same bits in every call).  optimize's history,
+# accept pattern, poses and inverse depths are reported beside JAX's, not
+# held: on the CPU the port and JAX part from the first step (its pose
+# update 10 % apart, each within 0.4 % of the float64 solve of its own
+# float32 terms: the terms' rounding, not the solver), then accept 4 of 10
+# steps differently, end 1.1x apart in cost, 4.5 m apart in position and
+# 100 % in the median inverse depth; the card repeats the CPU's decisions.
+# Held there: the history non-increasing and below the starting cost,
+# keyframe 0 fixed, every value finite
+BA_PARITY_BOUNDS = dict(cost=5e-7, H_pp=1.6e-5, b_p=5e-6, H_ll=5e-5, b_l=1.5e-5, B=7e-6,
+                        S=2.5e-5, rhs=6e-6, dp=3e-4, drho=3e-7)
+BA_PARITY_CPU = dict(cost=2.34e-7, H_pp=7.82e-6, b_p=1.75e-6, H_ll=2.22e-6, b_l=1.44e-6,
+                     B=2.18e-6, S=4.53e-6, rhs=2.73e-6, dp=1.25e-4, drho=1.04e-7)
+BA_PARITY_CARD = dict(cost=2.34e-7, H_pp=5.51e-6, b_p=2.05e-6, H_ll=2.10e-5, b_l=7.08e-6,
+                      B=3.02e-6, S=1.13e-5, rhs=9.1e-7, dp=1.39e-4, drho=1.30e-7)
+CLI_N = 120
+CLI_CKPT = 60
 REPLACES = {
     "att_flood": "rebvio_tpu/ops/pallas_kernels.py:206",
     "try_vel": "rebvio_tpu/ops/pallas_kernels.py:314",
@@ -516,6 +582,93 @@ def read_vio_golden(path):
     return np.loadtxt(path), float(final[3]), np.array([float(v) for v in final[5:8]])
 
 
+def cli_stream(n: int):
+    """The CLI's synthetic stream (``run.main``'s ``--dataset synthetic``:
+    the parity camera, seed 0, undistorted), made in a worker process while
+    the card runs the phases before phase 9."""
+    sys.path.insert(0, str(REPO))
+    from rebvio_tpu_torch.configs import CameraConfig
+    from rebvio_tpu_torch.data import synthetic
+
+    return synthetic.generate(CameraConfig(), n_frames=n, seed=0)
+
+
+def stream_prefix(sq, n: int, fps: float = 20.0, imu_rate: float = 200.0):
+    """``synthetic.generate(..., n_frames=n)`` of a longer stream made with
+    the same arguments: every field is a function of time, so it is the
+    first ``n`` frames with the IMU samples up to them."""
+    n_imu = int(n / fps * imu_rate)
+    return type(sq)(images=sq.images[:n], ts_us=sq.ts_us[:n], imu_ts_us=sq.imu_ts_us[:n_imu],
+                    imu_gyro=sq.imu_gyro[:n_imu], imu_acc=sq.imu_acc[:n_imu],
+                    gt_pos=sq.gt_pos[:n], gt_R_wc=sq.gt_R_wc[:n])
+
+
+def run_cli(run_mod, argv):
+    """``run.main(argv)``; returns (exit code, its JSON line), the line also
+    printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_mod.main(argv)
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(json.dumps({"cli": " ".join(argv), "rc": rc, "out": json.loads(line)}), flush=True)
+    return rc, json.loads(line)
+
+
+def ba_parity(np, torch, dev, bap, interop) -> dict:
+    """The port's BA on JAX's own problem of phase 9's run (the problem
+    golden): the cost and every BATerms field, the reduced system from JAX's
+    terms, the first step's pose update from JAX's reduced system and its
+    landmark update from JAX's terms and pose update, each as its largest
+    error relative to JAX's largest entry; then ``optimize`` (iters 10,
+    huber 3.0) beside JAX's: the cost history, the accept patterns, the
+    largest keyframe position error and the median relative error of rho.
+    Also runs on the CPU (the port against JAX there)."""
+    with np.load(BA_PROBLEM_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    p = interop.ba_problem_from_numpy({k[2:]: v for k, v in g.items() if k.startswith("p_")},
+                                      device=dev)
+    err = {}
+
+    def rel(name, got, want):
+        want = np.asarray(want, np.float64)
+        got = got.detach().cpu().numpy().astype(np.float64) if torch.is_tensor(got) else got
+        err[name] = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+    terms = bap.accumulate_terms(p, BA_HUBER)
+    for f in ("H_pp", "b_p", "H_ll", "b_l", "B", "cost"):
+        rel(f, getattr(terms, f), g["terms_" + f])
+    jt = bap.BATerms(**{f: torch.as_tensor(g["terms_" + f]).to(dev) for f in bap.BATerms._fields})
+    lam = torch.full((), 1e-3, dtype=torch.float32, device=dev)
+    S, rhs = bap.schur_reduce(jt, lam)
+    rel("S", S, g["S"])
+    rel("rhs", rhs, g["rhs"])
+    rel("dp", bap.solve_reduced(torch.as_tensor(g["S"]).to(dev), torch.as_tensor(g["rhs"]).to(dev),
+                                lam), g["dp"])
+    rel("drho", bap.backsub_landmarks(jt, torch.as_tensor(g["dp"]).to(dev), lam), g["drho"])
+    n_obs_equal = int(terms.n_obs) == int(g["terms_n_obs"])
+    cost0 = float(bap.problem_cost(p, BA_HUBER))
+    p_opt, hist = bap.optimize(p, iters=BA_ITERS, huber_delta=BA_HUBER)
+    hist = hist.cpu().numpy()
+
+    def accepts(h, c0):
+        return (h < np.concatenate([[c0], h[:-1]])).astype(int).tolist()
+
+    jr = g["opt_rho"]
+    return dict(errors=err, n_obs_equal=n_obs_equal, cost0=cost0, F=int(p.R.shape[0]),
+                L=int(p.rho.shape[0]),
+                O=int(p.obs_lm.shape[0]), hist=hist.tolist(), hist_jax=g["hist"].tolist(),
+                hist_rel=(np.abs(hist - g["hist"]) / g["hist"]).tolist(),
+                accept=accepts(hist, cost0), accept_jax=accepts(g["hist"], float(g["cost0"])),
+                t_max_abs_m=float(np.abs(p_opt.t.cpu().numpy() - g["opt_t"]).max()),
+                rho_median_rel=float(np.median(np.abs(p_opt.rho.cpu().numpy() - jr) / jr)),
+                monotone=bool((np.diff(np.concatenate([[cost0], hist])) <= 0).all()),
+                gauge_fixed=bool(torch.equal(p_opt.t[0], p.t[0])),
+                finite=bool(np.isfinite(hist).all() and torch.isfinite(p_opt.rho).all()))
+
+
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
@@ -552,6 +705,217 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def phase9(np, torch, kernels, card, vcfg, vseq, vmodes, mapper, wall, vlaunches,
+           jobs) -> int:
+    """Phase 9 of the module docstring, on phase 4's stream, graphed run
+    (``vmodes``), per-frame mapper (``mapper``, ``wall`` seconds over the
+    stream) and launch counts (``vlaunches``)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rebvio_tpu_torch import eval as ev, interop, run as run_mod
+    from rebvio_tpu_torch import graph as G
+    from rebvio_tpu_torch.ba import distributed as bad, problem as bap
+    from rebvio_tpu_torch.ba.keyframe_map import KeyframeMapBuilder
+    from rebvio_tpu_torch.configs import CameraConfig
+    from rebvio_tpu_torch.data import synthetic
+    from rebvio_tpu_torch.runner import VioRunner
+    from rebvio_tpu_torch.types import tree_leaves
+    from rebvio_tpu_torch.utils import checkpoint
+
+    def new_builder():
+        return KeyframeMapBuilder(vcfg, kf_every=BA_KF_EVERY, store_maps=True,
+                                  kf_phase=BA_KF_EVERY - 1)
+
+    # the mapped run: warmed up (the traced program's capture) and reset; the
+    # host's event waits counted (the chunk's readback, and a staging slot's
+    # reuse), every other host sync flagged by the sync debug mode
+    runner = VioRunner(vcfg, undistort=True, device="cuda")
+    runner.run_mapped(prefix(vseq, BA_KF_EVERY), new_builder(), chunk=BA_KF_EVERY)
+    runner.reset()
+    torch.cuda.synchronize()
+    builder = new_builder()
+    waits = {"event": 0, "slot": 0}
+    ev_sync, acquire = torch.cuda.Event.synchronize, G.StagingRing.acquire
+
+    def counted_sync(self):
+        waits["event"] += 1
+        return ev_sync(self)
+
+    def counted_acquire(self):
+        waits["slot"] += self._events[self._next] is not None
+        return acquire(self)
+
+    torch.cuda.Event.synchronize, G.StagingRing.acquire = counted_sync, counted_acquire
+    import warnings
+
+    kernels.reset_launches()
+    try:
+        with warnings.catch_warnings(record=True) as flagged:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            mres = runner.run_mapped(vseq, builder, chunk=BA_KF_EVERY)   # ends in its readback
+            mapped_s = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.Event.synchronize, G.StagingRing.acquire = ev_sync, acquire
+    mlaunches = dict(kernels.LAUNCHES)
+    chunks = N_VIO // BA_KF_EVERY
+    syncs = [str(w.message)[:120] for w in flagged if "synchroniz" in str(w.message)]
+    same_traj = same_run(np, mres, vmodes["graph"])
+    kf_same = (mapper.n_keyframes() == builder.n_keyframes()
+               and all(a.index == b.index and all(np.array_equal(getattr(a, f), getattr(b, f))
+                                                  for f in ("R_wc", "t_wc", "obs_tracks",
+                                                            "obs_uv", "obs_rho"))
+                       for a, b in zip(mapper.keyframes, builder.keyframes)))
+    maps_same = (len(mapper.kf_maps) == len(builder.kf_maps)
+                 and all(all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+                         for a, b in zip(mapper.kf_maps, builder.kf_maps)))
+    rec = {"slice": "vio mapped: VioRunner.run_mapped(chunk=5), KeyframeMapBuilder(kf_every=5, "
+                    "kf_phase=4, store_maps=True), parity profile, 120 frames",
+           "card": card, "ms_per_frame_mapped": mapped_s / N_VIO * 1e3,
+           "ms_per_frame_with_mapper_per_frame": wall / N_VIO * 1e3,
+           "ms_per_frame_graph": vmodes["ms"], "chunks": chunks,
+           "readbacks_per_chunk": (waits["event"] - waits["slot"]) / chunks,
+           "slot_waits_per_chunk": waits["slot"] / chunks, "flagged_syncs": syncs,
+           "trajectory_equal_phase4_graph": same_traj, "keyframes_equal_per_frame": kf_same,
+           "stored_maps_equal": maps_same, "keyframes": builder.n_keyframes(),
+           "launches": mlaunches, "launches_phase4": vlaunches}
+    print(json.dumps(rec), flush=True)
+    if not (same_traj and kf_same and maps_same):
+        return fail("phase 9: the mapped run differs from phase 4's graphed run or its mapper")
+    if mlaunches != vlaunches:
+        return fail(f"phase 9: mapped launch counts {mlaunches}, phase 4's {vlaunches}")
+    if syncs or waits["event"] - waits["slot"] != chunks:
+        return fail(f"phase 9: host syncs in the mapped run: {waits}, {syncs}")
+
+    # the BA at full width on the port's own map, against JAX's summary
+    golden = json.loads(BA_SUMMARY_GOLDEN.read_text())
+    gold, bounds = golden["pallas"], ba_bounds(golden)
+    p = builder.build_problem(min_obs=2)
+    terms0 = bap.accumulate_terms(p)
+    p1, h1 = bap.optimize(p, iters=BA_ITERS, huber_delta=BA_HUBER)     # the first call
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a.record()
+        p2, h2 = bap.optimize(p, iters=BA_ITERS, huber_delta=BA_HUBER)
+        b.record()
+    except RuntimeError as e:
+        return fail(f"phase 9: optimize synced the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    b.synchronize()
+    opt_ms = a.elapsed_time(b)
+    repeat_same = torch.equal(h1, h2) and all(torch.equal(getattr(p1, f), getattr(p2, f))
+                                              for f in ("R", "t", "rho"))
+    terms1 = bap.accumulate_terms(p1)
+    n_obs = max(int(terms0.n_obs), 1)
+    kf_idx = np.asarray([k.index for k in builder.keyframes])
+    mine = dict(ba_keyframes=builder.n_keyframes(), ba_landmarks=int(p.lm_valid.sum()),
+                ba_observations=int(p.obs_valid.sum()),
+                ba_rms_before_px=float(np.sqrt(float(terms0.cost) / n_obs)),
+                ba_rms_after_px=float(np.sqrt(float(terms1.cost) / n_obs)),
+                ba_ate_sim3=ev.ate_rmse(p1.t.cpu().numpy(), vseq.gt_pos[kf_idx], align=True,
+                                        with_scale=True))
+    # world size 1 over NCCL: the same function as the single-device optimize
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        ps = bad.shard_problem(p, 1)
+        pd, hd = bad.optimize(bad.local_shard(ps, 0, 1), iters=BA_ITERS, huber_delta=BA_HUBER)
+        ps1, hs1 = bap.optimize(ps, iters=BA_ITERS, huber_delta=BA_HUBER)
+        dist_same = torch.equal(hd, hs1) and all(torch.equal(getattr(pd, f), getattr(ps1, f))
+                                                 for f in ("R", "t", "rho", "obs_lm"))
+    finally:
+        dist.destroy_process_group()
+    bad_keys = [k for k, bnd in bounds.items() if not abs(mine[k] - gold[k]) <= bnd]
+    rec = {"slice": "vio BA: build_problem(min_obs=2), optimize(iters=10, huber_delta=3.0), "
+                    "parity profile", "card": card, "optimize_ms": opt_ms,
+           "F": int(p.R.shape[0]), "L": int(p.rho.shape[0]), "O": int(p.obs_lm.shape[0]),
+           "port": mine, "jax_golden": {k: gold[k] for k in mine}, "bounds": bounds,
+           "out_of_bounds": bad_keys, "hist": h1.cpu().numpy().tolist(),
+           "repeat_bit_identical": repeat_same, "nccl_world1_bit_identical": dist_same}
+    print(json.dumps(rec), flush=True)
+    if mine["ba_keyframes"] != gold["ba_keyframes"] or bad_keys:
+        return fail(f"phase 9: the BA summary {bad_keys} out of bounds against the JAX golden")
+    if not mine["ba_rms_after_px"] < mine["ba_rms_before_px"]:
+        return fail("phase 9: BA did not lower the RMS reprojection error")
+    if not (repeat_same and dist_same):
+        return fail("phase 9: optimize is not bit-identical across calls or over NCCL")
+
+    # JAX's own problem of that run
+    par = ba_parity(np, torch, torch.device("cuda"), bap, interop)
+    over = [k for k, bnd in BA_PARITY_BOUNDS.items() if not par["errors"][k] <= bnd]
+    print(json.dumps({"check": "BA on JAX's own problem (tests/data/"
+                               "torch_golden_ba_problem_seed0_120.npz)", "card": card,
+                      **par, "bounds": BA_PARITY_BOUNDS, "cpu_port_vs_jax": BA_PARITY_CPU,
+                      "card_port_vs_jax_measured": BA_PARITY_CARD,
+                      "over": over}), flush=True)
+    if over or not (par["n_obs_equal"] and par["monotone"] and par["gauge_fixed"]
+                    and par["finite"] and par["hist"][-1] < par["cost0"]):
+        return fail(f"phase 9: BA on JAX's problem: {over} over their bounds, or the history "
+                    "not monotone / the gauge moved / not finite")
+
+    # the CLI: its synthetic stream made once in a worker, served by prefix
+    cli_seq = jobs["cli"].get(timeout=900)
+    generate = synthetic.generate
+
+    def served(cam, n_frames=60, seed=0, **kw):
+        if cam == CameraConfig() and seed == 0 and not kw and n_frames <= len(cli_seq.images):
+            return stream_prefix(cli_seq, n_frames)
+        return generate(cam, n_frames=n_frames, seed=seed, **kw)
+
+    synthetic.generate = served
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            f = {k: str(Path(tmp) / k) for k in ("full.npz", "half.npz", "resumed.npz",
+                                                 "full.txt", "resumed.txt")}
+            base = ["--dataset", "synthetic", "--mode", "vio"]
+            runs = [run_cli(run_mod, base + ["--frames", str(CLI_N), "--ba", "--checkpoint-out",
+                                             f["full.npz"], "--odometry-out", f["full.txt"]]),
+                    run_cli(run_mod, base + ["--frames", str(CLI_N), "--pose-graph",
+                                             "--chunk", "8"]),
+                    run_cli(run_mod, base + ["--frames", str(CLI_CKPT), "--checkpoint-out",
+                                             f["half.npz"]]),
+                    run_cli(run_mod, base + ["--frames", str(CLI_N), "--resume", f["half.npz"],
+                                             "--checkpoint-out", f["resumed.npz"],
+                                             "--odometry-out", f["resumed.txt"], "--timing"])]
+            full_lines = Path(f["full.txt"]).read_text().splitlines()
+            res_lines = Path(f["resumed.txt"]).read_text().splitlines()
+            with np.load(f["full.npz"]) as x, np.load(f["resumed.npz"]) as y:
+                state_same = x.files == y.files and all(np.array_equal(x[k], y[k])
+                                                        for k in x.files)
+    finally:
+        synthetic.generate = generate
+    ba, pg, _, resumed = (o for _, o in runs)
+    tail_same = res_lines == full_lines[CLI_CKPT:]
+    print(json.dumps({"check": f"CLI --resume after frame {CLI_CKPT - 1}: the tail and the final "
+                               "state equal the 120-frame run's", "odometry_equal": tail_same,
+                      "final_state_equal": state_same}), flush=True)
+    if any(rc for rc, _ in runs) or not all(o["run_ok"] for _, o in runs):
+        return fail("phase 9: a CLI run failed")
+    if not (ba.get("ba_rms_after_px", 1e30) < ba.get("ba_rms_before_px", 0)
+            and pg.get("pg_cost_after", 1e30) <= pg.get("pg_cost_before", 0)):
+        return fail("phase 9: the CLI's --ba or --pose-graph block is missing or did not improve")
+    if not (tail_same and state_same and resumed["frames"] == CLI_N - CLI_CKPT):
+        return fail("phase 9: the resumed CLI run differs from the full run's tail")
+    return 0
+
+
+def free_port() -> int:
+    """A localhost TCP port that was free a moment ago."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     if not (REPO / "rebvio_tpu_torch" / "__init__.py").exists():
         return fail(f"rebvio_tpu_torch/ not found beside {Path(__file__).name}")
@@ -564,9 +928,10 @@ def main() -> int:
     import multiprocessing as mp
 
     # phase 7's streams are made on the host's other cores meanwhile
-    pool = mp.get_context("spawn").Pool(len(ANCHORS))
+    pool = mp.get_context("spawn").Pool(len(ANCHORS) + 1)
     try:
         jobs = {name: pool.apply_async(anchor_stream, (kw, n)) for name, _, kw, n, _ in ANCHORS}
+        jobs["cli"] = pool.apply_async(cli_stream, (CLI_N,))     # phase 9's CLI runs
         return smoke(np, torch, jobs)
     finally:
         pool.terminate()
@@ -574,8 +939,8 @@ def main() -> int:
 
 
 def smoke(np, torch, jobs) -> int:
-    """The phases of the module docstring; ``jobs``: phase 7's streams, being
-    made in worker processes."""
+    """The phases of the module docstring; ``jobs``: phase 7's streams and
+    phase 9's CLI stream, being made in worker processes."""
     from rebvio_tpu_torch import eval as ev
     from rebvio_tpu_torch.configs import CameraConfig, PipelineConfig, fast_profile
     from rebvio_tpu_torch.data import synthetic
@@ -1519,6 +1884,11 @@ def smoke(np, torch, jobs) -> int:
                               "positions_equal_the_eager_run": same}), flush=True)
             if not same:
                 return fail("the no-sync eager R+W VIO frames differ from the eager run")
+
+    # ---------------- phase 9: mapping at chunk speed and the Schur BA
+    rc = phase9(np, torch, kernels, card, vcfg, vseq, vmodes, mapper, wall, vlaunches, jobs)
+    if rc:
+        return rc
 
     # each kernel's count on the path that runs it: the VIO slice, the loop
     # closure (att_field), the field tool (nn_field), the single-pass drive

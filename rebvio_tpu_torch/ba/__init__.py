@@ -1,3 +1,3 @@
-"""Back end of the port: keyframe maps, loop-closure registration and the
-pose graph (rebvio_tpu/ba/).  The Schur bundle adjustment (``problem.py``,
-``distributed.py``) is not ported yet."""
+"""Back end of the port: keyframe maps, loop-closure registration, the pose
+graph and the Schur-complement bundle adjustment, single-device and
+landmark-sharded (rebvio_tpu/ba/)."""

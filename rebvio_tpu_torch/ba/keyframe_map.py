@@ -7,11 +7,10 @@ edge_map.cpp:186-218), assigns persistent track ids, and at keyframes
 records (track, keyframe, normalized-pixel) landmark observations plus the
 current VIO pose and per-keyline inverse depth.  With ``store_maps`` each
 keyframe's whole EdgeMap is kept on its device for loop-closure
-registration (ba/loop_closure.register_pair).
-
-The conversion of the accumulated map to a bundle-adjustment problem
-(``build_problem`` of the JAX package) belongs to the Schur BA back end and
-is not part of this module yet.
+registration (ba/loop_closure.register_pair).  ``build_problem`` converts
+the accumulated map to a fixed-shape BAProblem (ba/problem.py) for the
+(optionally landmark-sharded, ba/distributed.py) Schur-complement
+refinement.
 """
 
 from __future__ import annotations
@@ -22,7 +21,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from rebvio_tpu_torch import resolve_device
 from rebvio_tpu_torch import types as T
+from rebvio_tpu_torch.ba.problem import BAProblem
 from rebvio_tpu_torch.configs import PipelineConfig
 from rebvio_tpu_torch.geometry import so3
 
@@ -111,3 +112,64 @@ class KeyframeMapBuilder:
 
     def n_keyframes(self) -> int:
         return len(self.keyframes)
+
+    def build_problem(self, min_obs: int = 2, device="cuda") -> Optional[BAProblem]:
+        """The accumulated keyframes as a fixed-shape BAProblem on ``device``.
+
+        Landmarks are the tracks observed in >= ``min_obs`` keyframes; each is
+        anchored at its first observing keyframe, with that observation's ray
+        and VIO inverse depth as the initial value.  None with fewer than two
+        keyframes or no such track."""
+        if len(self.keyframes) < 2:
+            return None
+        # all observations in (keyframe, slot) order, grouped by track
+        tr_all = np.concatenate([kf.obs_tracks for kf in self.keyframes])
+        f_all = np.concatenate([np.full(len(kf.obs_tracks), f, np.int32)
+                                for f, kf in enumerate(self.keyframes)])
+        uv_all = np.concatenate([kf.obs_uv for kf in self.keyframes])
+        rho_all = np.concatenate([kf.obs_rho for kf in self.keyframes])
+
+        tracks, first_idx, inv, counts = np.unique(
+            tr_all, return_index=True, return_inverse=True, return_counts=True)
+        keep_track = counts >= min_obs          # tracks sorted ascending
+        if not keep_track.any():
+            return None
+        # landmark id per kept track; -1 for dropped tracks
+        lid_of_track = np.cumsum(keep_track) - 1
+        lid_of_track[~keep_track] = -1
+        L = int(keep_track.sum())
+
+        # anchor = the first observation of each kept track in flat order
+        a_idx = first_idx[keep_track]
+        anchor_kf = f_all[a_idx].astype(np.int32)
+        anchor_ray = np.concatenate([uv_all[a_idx], np.ones((L, 1), uv_all.dtype)],
+                                    axis=-1).astype(np.float32)
+        rho0 = np.clip(rho_all[a_idx], 1e-3, 1e3).astype(np.float32)
+
+        # the other observations of kept tracks
+        lm_flat = lid_of_track[inv]
+        is_anchor = np.zeros(len(tr_all), bool)
+        is_anchor[a_idx] = True
+        sel = (lm_flat >= 0) & ~is_anchor
+        obs_lm = lm_flat[sel].astype(np.int32)
+        obs_kf = f_all[sel]
+        obs_uv = uv_all[sel].astype(np.float32)
+        O = max(len(obs_lm), 1)
+        if not len(obs_lm):                     # one invalid placeholder
+            obs_lm = np.full(1, -1, np.int32)
+            obs_kf = np.zeros(1, np.int32)
+            obs_uv = np.zeros((1, 2), np.float32)
+        dev = resolve_device(device)
+        fm = self.config.camera.fm
+
+        def put(a, dtype=None):
+            return torch.as_tensor(np.asarray(a, dtype)).to(dev)
+
+        return BAProblem(
+            R=put(np.stack([k.R_wc for k in self.keyframes]), np.float32),
+            t=put(np.stack([k.t_wc for k in self.keyframes]), np.float32),
+            rho=put(rho0), anchor_kf=put(anchor_kf), anchor_ray=put(anchor_ray),
+            obs_lm=put(obs_lm), obs_kf=put(obs_kf, np.int32), obs_uv=put(obs_uv),
+            obs_w=torch.full((O,), float(fm), dtype=torch.float32, device=dev),
+            lm_valid=torch.ones(L, dtype=torch.bool, device=dev),
+            obs_valid=torch.full((O,), bool(sel.any()), dtype=torch.bool, device=dev))

@@ -13,8 +13,9 @@ hands it frame i+1's device buffer before it dispatches step i.  Here:
 - ``StepProgram``: the step over the n frames of a slot.  On a CUDA device
   with ``graph=True`` it is captured once into a ``torch.cuda.CUDAGraph``
   over static buffers (the input slot, the caller's state, the packed
-  odometry) and replayed; otherwise it runs eagerly.  A capture or replay
-  that fails raises: there is no eager fallback on the card.
+  odometry and, for the mapped runner, the packed mapping trace beside it)
+  and replayed; otherwise it runs eagerly.  A capture or replay that fails
+  raises: there is no eager fallback on the card.
 
 Upload: the host packs a slot, copies it on a copy stream into the slot's
 device twin (``non_blocking`` from pinned memory) and records an event; the
@@ -44,6 +45,28 @@ def odometry_view(packed: torch.Tensor) -> T.Odometry:
     return T.Odometry(orientation=packed[..., 0:3], position=packed[..., 3:6],
                       num_matches=packed[..., 6].view(torch.int32),
                       run_ok=packed[..., 7:8].view(torch.uint8)[..., 0].view(torch.bool))
+
+
+def trace_words(kmax: int) -> int:
+    """Words of one frame's packed mapping trace (``pack_trace``)."""
+    return 5 * kmax + 1
+
+
+def pack_trace(trace: dict) -> torch.Tensor:
+    """``pipeline.step_chunk_traced``'s trace as float32 rows [n,
+    trace_words(K)]: valid (0/1), match_id (its int32 bits), pos_img (x, y
+    interleaved), rho, then K.  Exact: no value is rounded."""
+    n = trace["valid"].shape[0]
+    return torch.cat([trace["valid"].to(f32), trace["match_id"].view(f32),
+                      trace["pos_img"].reshape(n, -1), trace["rho"], trace["K"][:, None]], dim=1)
+
+
+def unpack_trace(rows: np.ndarray, kmax: int):
+    """Host rows [n, trace_words(kmax)] -> (valid [n, K] bool, match_id
+    int32, pos_img [n, K, 2], rho [n, K], K [n]), views of ``rows``."""
+    K = kmax
+    return (rows[:, :K] > 0.5, rows[:, K:2 * K].view(np.int32),
+            rows[:, 2 * K:4 * K].reshape(-1, K, 2), rows[:, 4 * K:5 * K], rows[:, 5 * K])
 
 
 def copy_tree_(dst, src) -> None:
@@ -126,7 +149,11 @@ class StagingRing:
 
 class StepProgram:
     """``fn(state, frames, imu, dts) -> (state', odometry [n])`` over the n
-    frames of one staging slot, for one runner state.
+    frames of one staging slot, for one runner state; with ``trace_words``,
+    ``-> (state', odometry [n], trace rows [n, trace_words])``.  Its outputs
+    land in the static buffer ``buf`` [n, ODO_WORDS + trace_words]: the
+    packed odometry (``out``), then the trace (``trace``), so one copy reads
+    both back.
 
     ``stage`` packs frames into a free slot and starts its upload; ``run``
     runs the step on a staged slot.  With ``graph`` (CUDA only) the first
@@ -138,7 +165,7 @@ class StepProgram:
     and capture are taken back; each replay adds the captured ones."""
 
     def __init__(self, fn: Callable, layout: SlotLayout, device: torch.device, n_slots: int,
-                 graph: bool, copy_stream=None):
+                 graph: bool, copy_stream=None, trace_words: int = 0):
         self.fn, self.layout, self.device = fn, layout, device
         self.cuda = device.type == "cuda"
         self.graph = graph and self.cuda
@@ -150,7 +177,9 @@ class StepProgram:
                           for _ in range(n_slots)]
             self.static_in = torch.empty(layout.nbytes, dtype=torch.uint8, device=device)
             self.copy_stream = copy_stream
-        self.out = torch.zeros((layout.n, ODO_WORDS), dtype=f32, device=device)
+        self.buf = torch.zeros((layout.n, ODO_WORDS + trace_words), dtype=f32, device=device)
+        self.out = self.buf[:, :ODO_WORDS]
+        self.trace = self.buf[:, ODO_WORDS:] if trace_words else None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self.captured_launches = {}
 
@@ -177,8 +206,8 @@ class StepProgram:
         state and is returned as it is, updated in place."""
         if not self.cuda:
             frames, imu, dts = self.layout.views(self.ring.slots[k])
-            state, odo = self.fn(state, frames, imu, dts)
-            copy_tree_(odometry_view(self.out), odo)
+            state, *outs = self.fn(state, frames, imu, dts)
+            self._store(outs)
             self.ring.release(k, None)
             return state, self.out.clone(), None
         cur = torch.cuda.current_stream(self.device)
@@ -192,12 +221,18 @@ class StepProgram:
                 kernels.LAUNCHES[name] += n
         else:
             frames, imu, dts = self.layout.views(self.static_in)
-            state, odo = self.fn(state, frames, imu, dts)
-            copy_tree_(odometry_view(self.out), odo)
+            state, *outs = self.fn(state, frames, imu, dts)
+            self._store(outs)
         done = torch.cuda.Event()
         done.record(cur)
         self.ring.release(k, done)
         return state, self.out.clone(), done
+
+    def _store(self, outs) -> None:
+        """The step's outputs (odometry[, trace rows]) into ``buf``."""
+        copy_tree_(odometry_view(self.out), outs[0])
+        if self.trace is not None:
+            self.trace.copy_(outs[1])
 
     def _capture(self, state: T.VioState) -> None:
         frames, imu, dts = self.layout.views(self.static_in)
@@ -207,9 +242,9 @@ class StepProgram:
         with torch.cuda.stream(side):
             scratch = T.tree_map(torch.clone, state)
             for _ in range(2):
-                scratch, _odo = self.fn(scratch, frames, imu, dts)
+                scratch, *_outs = self.fn(scratch, frames, imu, dts)
         torch.cuda.current_stream(self.device).wait_stream(side)
-        del scratch, _odo
+        del scratch, _outs
         warm = dict(kernels.LAUNCHES)
         g = torch.cuda.CUDAGraph()
         # no garbage collection while capturing: a collected cycle holding a
@@ -220,10 +255,10 @@ class StepProgram:
         gc.disable()
         try:
             with torch.cuda.graph(g, stream=side):
-                new_state, odo = self.fn(state, frames, imu, dts)
+                new_state, *outs = self.fn(state, frames, imu, dts)
                 copy_tree_(state, new_state)
-                copy_tree_(odometry_view(self.out), odo)
-            del new_state, odo
+                self._store(outs)
+            del new_state, outs
         finally:
             if collecting:
                 gc.enable()

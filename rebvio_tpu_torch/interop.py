@@ -62,9 +62,19 @@ def pose_graph_from_numpy(d: dict, device="cuda"):
                         for k in PoseGraph._fields})
 
 
+def ba_problem_from_numpy(d: dict, device="cuda"):
+    """A JAX ``BAProblem`` (as a dict of numpy arrays) on ``device``."""
+    from rebvio_tpu_torch.ba.problem import BAProblem
+
+    dev = resolve_device(device)
+    return BAProblem(**{k: torch.as_tensor(np.array(d[k], copy=True)).to(dev)
+                        for k in BAProblem._fields})
+
+
 def to_numpy(obj) -> dict:
-    """A port dataclass (or FrontendMatrices) as a nested dict of numpy arrays."""
-    if hasattr(obj, "_asdict"):    # FrontendMatrices, PoseGraph
+    """A port dataclass (or NamedTuple of tensors) as a nested dict of numpy
+    arrays."""
+    if hasattr(obj, "_asdict"):    # FrontendMatrices, PoseGraph, BAProblem, BATerms
         return {k: None if v is None else v.cpu().numpy() for k, v in obj._asdict().items()}
     out = {}
     for f in dataclasses.fields(obj):

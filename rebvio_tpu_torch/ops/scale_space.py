@@ -15,6 +15,8 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from rebvio_tpu_torch import resolve_device
+
 
 def box_widths(sigma: float, n: int = 3) -> Tuple[List[int], float]:
     """Box-filter widths for an n-pass Gaussian(sigma) approximation, and the
@@ -90,9 +92,10 @@ class ScaleSpaceParams:
             YH=_offset_band(H, d5),
         )
 
-    def matrices(self, device="cpu") -> FrontendMatrices:
+    def matrices(self, device="cuda") -> FrontendMatrices:
+        dev = resolve_device(device)
         return FrontendMatrices(**{
-            k: torch.as_tensor(v.astype(np.float32), device=device)
+            k: torch.as_tensor(v.astype(np.float32), device=dev)
             for k, v in self._np_mats.items()})
 
 

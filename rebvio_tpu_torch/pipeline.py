@@ -333,6 +333,25 @@ def step_chunk(state: T.VioState, frames: torch.Tensor, imu_data: T.ImuFrameData
     return state, stack_odometry(odos)
 
 
+def step_chunk_traced(state: T.VioState, frames: torch.Tensor, imu_data: T.ImuFrameData,
+                      frame_dt, config: PipelineConfig, mats: FrontendMatrices = None):
+    """``step_chunk`` that also returns the per-frame mapping trace
+    (rebvio_tpu/pipeline.py:332-366): of each frame's post-step map the
+    planes the keyframe-map builder reads (``valid``, ``match_id`` for the
+    track propagation, ``pos_img``, ``rho`` at keyframes), and the scale
+    ``K`` after the frame (the builder's ``K_scale``), stacked along a
+    leading [N] axis on the device.  Returns (state, odometry, trace)."""
+    odos, trace = [], []
+    for i in range(frames.shape[0]):
+        win = T.tree_map(lambda x: x[i], imu_data)
+        state, odo = step(state, frames[i], win, frame_dt[i], config, mats)
+        odos.append(odo)
+        em = state.edge_map
+        trace.append((em.valid, em.match_id, em.pos_img, em.rho, state.K))
+    names = ("valid", "match_id", "pos_img", "rho", "K")
+    return state, stack_odometry(odos), {k: torch.stack(v) for k, v in zip(names, zip(*trace))}
+
+
 def step_chunk_pipelined(state: T.VioState, frames: torch.Tensor, imu_data: T.ImuFrameData,
                          frame_dt, config: PipelineConfig, mats: FrontendMatrices = None):
     """N frames with the detections taken ahead (rebvio_tpu/pipeline.py:369-419):

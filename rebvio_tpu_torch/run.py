@@ -2,21 +2,32 @@
 
     python -m rebvio_tpu_torch.run --dataset synthetic --frames 120 --mode vio
     python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --pose-graph
+    python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --ba
     python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --chunk 8
     python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --realtime 1.0
     python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --matcher walk
+    python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 60 --checkpoint-out ck.npz
+    python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --resume ck.npz
 
 Runs on the GPU unless ``--device cpu`` is given; there the step is one CUDA
 graph a frame (``--chunk N``: a graph of N frames).  Writes a
 reference-format odometry file on request and prints one JSON line with the
-frame rate and the ATE against the synthetic ground truth; with
-``--pose-graph`` also the keyframe pose graph's loop factors, cost and ATE
-before and after the optimization; with ``--realtime`` the processed and
-dropped frames and the worst latency.  ``--matcher walk`` runs the
-reference's semantics (the pixel-walk matcher on the rasterized field, unless
-``--df-mode jfa``); ``--chunk-mode pipelined`` holds the detection threshold
-for each chunk.  Only what the port implements is offered: argparse rejects
-every other flag of the JAX runner (``--ba`` among them).
+frame rate and the ATE against the synthetic ground truth.  With a keyframe
+map (``--ba``, ``--pose-graph``) the run maps at chunk speed
+(``VioRunner.run_mapped``: ``--kf-every`` frames a graph, the map's trace
+read back once a chunk; ``--chunk`` is then unused, as in JAX): ``--ba``
+adds the Schur-complement bundle adjustment's keyframes, landmarks, RMS
+reprojection error before and after and keyframe ATE; ``--pose-graph`` the
+keyframe pose graph's loop factors, cost and ATE before and after the
+optimization.  ``--realtime`` reports the processed and dropped frames and
+the worst latency.  ``--matcher walk`` runs the reference's semantics (the
+pixel-walk matcher on the rasterized field, unless ``--df-mode jfa``);
+``--chunk-mode pipelined`` holds the detection threshold for each chunk.
+``--checkpoint-out`` saves the state after the run (an ``.npz`` in the JAX
+package's key paths); ``--resume`` copies a saved state (the port's or
+JAX's) into the runner and continues the stream after the frames that state
+has seen.  ``--timing`` prints section times to stderr.  Only what the port
+implements is offered: argparse rejects every other flag of the JAX runner.
 """
 
 from __future__ import annotations
@@ -33,7 +44,10 @@ import torch
 from rebvio_tpu_torch import eval as ev
 from rebvio_tpu_torch.configs import (CameraConfig, CoreConfig, EdgeDetectorConfig,
                                       PipelineConfig, default_df_mode)
-from rebvio_tpu_torch.runner import RunResult, VioRunner
+from rebvio_tpu_torch.graph import copy_tree_
+from rebvio_tpu_torch.runner import VioRunner
+from rebvio_tpu_torch.utils import logging as rlog
+from rebvio_tpu_torch.utils import timing
 
 PRESETS = {
     "half": (dict(rows=240, cols=376, fx=229.3, fy=228.6, cx=183.6, cy=124.2,
@@ -63,14 +77,24 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=120)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--odometry-out", default=None)
+    ap.add_argument("--checkpoint-out", default=None,
+                    help="save the estimator state after the run (.npz)")
+    ap.add_argument("--resume", default=None,
+                    help="start from a saved state (the port's or the JAX package's "
+                         "checkpoint) and run the frames after those it has seen")
+    ap.add_argument("--timing", action="store_true", help="print section times to stderr")
     ap.add_argument("--preset", choices=["euroc", "half", "small"], default="euroc",
                     help="camera/detector size preset (half/small for quick runs)")
+    ap.add_argument("--ba", action="store_true",
+                    help="build a keyframe map during the run and refine it with "
+                         "Schur-complement bundle adjustment")
     ap.add_argument("--pose-graph", action="store_true",
                     help="build a keyframe pose graph from the run (sequential odometry "
                          "factors + tracker-registered loop closures) and optimize it")
     ap.add_argument("--kf-every", type=int, default=5,
-                    help="keyframe stride for --pose-graph; keyframes fire at frames "
-                         "{kf-1, 2*kf-1, ...} (phase = kf_every-1)")
+                    help="keyframe stride for --ba/--pose-graph, and the mapped run's "
+                         "frames a graph; keyframes fire at frames {kf-1, 2*kf-1, ...} "
+                         "(phase = kf_every-1, at the end of each chunk)")
     ap.add_argument("--roll-sweep", type=float, default=0.0, metavar="DEG",
                     help="loop closure: extend the coarse yaw sweep to a 2-D yaw x roll "
                          "grid sweeping +-DEG about the optical axis (off by default: on "
@@ -103,10 +127,11 @@ def main(argv=None):
 
     from rebvio_tpu_torch.data import synthetic
 
-    if args.realtime > 0 and (args.pose_graph or args.chunk):
-        ap.error("--realtime is a streaming mode (no --pose-graph/--chunk)")
-    if args.chunk and args.pose_graph:
-        ap.error("--chunk with --pose-graph needs run_mapped, not ported yet")
+    log = rlog.init()
+    timing.enable(args.timing)
+    mapping = args.ba or args.pose_graph
+    if args.realtime > 0 and (mapping or args.chunk):
+        ap.error("--realtime is a streaming mode (no --ba/--pose-graph/--chunk)")
     df_mode = default_df_mode(args.matcher, args.df_mode)
     if args.matcher == "tube" and df_mode != "jfa":
         ap.error("--matcher tube requires --df-mode jfa")
@@ -118,79 +143,121 @@ def main(argv=None):
     runner = VioRunner(config, undistort=False, device=args.device)
     on_gpu = runner.device.type == "cuda"
 
-    mapper = None
-    if args.pose_graph:
+    builder = None
+    if mapping:
         from rebvio_tpu_torch.ba.keyframe_map import KeyframeMapBuilder
 
-        mapper = KeyframeMapBuilder(config, kf_every=args.kf_every, store_maps=True,
-                                    kf_phase=args.kf_every - 1)
+        def new_builder():
+            # keyframes at the end of each chunk: run_mapped snapshots the
+            # device edge map there without a per-frame readback
+            return KeyframeMapBuilder(config, kf_every=args.kf_every, store_maps=args.pose_graph,
+                                      kf_phase=args.kf_every - 1)
+
+        builder = new_builder()
 
     # warm-up (kernel build, band matrices, the graphs' capture), so the fps
-    # figure is steady state: one frame, and one chunk with --chunk
+    # figure is steady state: one frame, and one chunk of the mode that runs
     runner.process_frame(np.asarray(seq.images[0]), int(seq.ts_us[0]) - 1,
                          np.asarray([], dtype=np.int64), np.zeros((0, 3)), np.zeros((0, 3)))
-    if args.chunk > 1:
-        runner.run(dataclasses.replace(seq, images=seq.images[:args.chunk],
-                                       ts_us=seq.ts_us[:args.chunk]), chunk=args.chunk,
-                   pipelined=pipelined)
+    warm = min(args.kf_every if mapping else args.chunk, len(seq.images))
+    if warm > 1:
+        head = dataclasses.replace(seq, images=seq.images[:warm], ts_us=seq.ts_us[:warm])
+        if mapping:
+            runner.run_mapped(head, new_builder(), chunk=args.kf_every)
+        else:
+            runner.run(head, chunk=args.chunk, pipelined=pipelined)
     runner.reset()
+
+    if args.resume:
+        from rebvio_tpu_torch.utils import checkpoint
+
+        # into the static state: the captured graphs hold its addresses
+        copy_tree_(runner.state, checkpoint.load(args.resume, runner.state))
+        start = int(runner.state.frames_seen)
+        if not 0 < start < len(seq.images):
+            ap.error(f"--resume: the state has seen {start} frames; --frames {args.frames} "
+                     f"leaves none to run")
+        runner.continue_after(int(seq.ts_us[start - 1]), seq.imu_ts_us)
+        seq = dataclasses.replace(seq, images=seq.images[start:], ts_us=seq.ts_us[start:],
+                                  gt_pos=seq.gt_pos[start:], gt_R_wc=seq.gt_R_wc[start:])
+        gt = seq.gt_pos
+        log.info("resumed state from %s after frame %d", args.resume, start - 1)
     if on_gpu:
         torch.cuda.synchronize()
 
     t0 = time.time()
     rt = None
-    if args.realtime > 0:
-        rt = runner.run_realtime(seq, speed=args.realtime, queue_size=args.rt_queue)
-        res = rt.result
-    elif mapper is None:
-        res = runner.run(seq, chunk=args.chunk, pipelined=pipelined)
-    else:
-        rows = []
-        for i in range(len(seq.images)):
-            odo = runner.process_frame(seq.images[i], int(seq.ts_us[i]), seq.imu_ts_us,
-                                       seq.imu_gyro, seq.imu_acc)
-            o, p = odo.orientation.cpu().numpy(), odo.position.cpu().numpy()
-            mapper.add_frame(runner.state.edge_map, o, p, K_scale=float(runner.state.K))
-            rows.append((int(seq.ts_us[i]), o, p, int(odo.num_matches), bool(odo.run_ok)))
-        res = RunResult(*(np.asarray(c) for c in zip(*rows)))
+    with timing.section("run", sync=runner.device):
+        if args.realtime > 0:
+            rt = runner.run_realtime(seq, speed=args.realtime, queue_size=args.rt_queue)
+            res = rt.result
+        elif builder is None:
+            res = runner.run(seq, chunk=args.chunk, pipelined=pipelined)
+        else:
+            res = runner.run_mapped(seq, builder, chunk=args.kf_every)
     if on_gpu:
         torch.cuda.synchronize()
     elapsed = time.time() - t0
     n = len(res.ts_us)
-    print(f"{n} frames in {elapsed:.2f}s ({n / elapsed:.1f} fps), "
-          f"run_ok={bool(res.run_ok[-1])}", file=sys.stderr)
+    log.info("%d frames in %.2fs (%.1f fps), run_ok=%s", n, elapsed, n / elapsed,
+             bool(res.run_ok[-1]))
 
     if args.odometry_out:
         ev.write_odometry(args.odometry_out, res.ts_us, res.orientation, res.position)
+        log.info("odometry written to %s", args.odometry_out)
+    if args.checkpoint_out:
+        from rebvio_tpu_torch.utils import checkpoint
+
+        checkpoint.save(args.checkpoint_out, runner.state)
+        log.info("state checkpoint written to %s", args.checkpoint_out)
 
     out = {"frames": n, "fps": n / elapsed, "run_ok": bool(res.run_ok[-1])}
     if rt is not None:
         out.update(realtime_speed=args.realtime, rt_processed=rt.processed,
                    rt_dropped=rt.dropped, rt_worst_latency_ms=rt.worst_latency_s * 1e3)
         gt = gt[rt.frame_idx]
-    if mapper is not None and mapper.n_keyframes() >= 3:
+    if args.pose_graph and builder.n_keyframes() >= 3:
         from rebvio_tpu_torch.ba import loop_closure as lc
         from rebvio_tpu_torch.ba import pose_graph as pgm
 
-        kf_R = np.stack([k.R_wc for k in mapper.keyframes])
-        kf_t = np.stack([k.t_wc for k in mapper.keyframes])
-        g, n_loops = lc.build_graph_from_run(
-            kf_R, kf_t, mapper.kf_maps, config, K_scale=float(runner.state.K),
-            min_matches=int(config.core.global_min_matches_threshold),
-            coarse_sweep2_deg=args.roll_sweep)
-        g_opt, hist = pgm.optimize(g, iters=12)
-        hist = hist.cpu().numpy()
-        kf_idx = np.asarray([k.index for k in mapper.keyframes])
-        out["pg_keyframes"] = mapper.n_keyframes()
+        with timing.section("pose_graph", sync=runner.device):
+            kf_R = np.stack([k.R_wc for k in builder.keyframes])
+            kf_t = np.stack([k.t_wc for k in builder.keyframes])
+            g, n_loops = lc.build_graph_from_run(
+                kf_R, kf_t, builder.kf_maps, config, K_scale=float(runner.state.K),
+                min_matches=int(config.core.global_min_matches_threshold),
+                coarse_sweep2_deg=args.roll_sweep)
+            g_opt, hist = pgm.optimize(g, iters=12)
+            hist = hist.cpu().numpy()
+        kf_idx = np.asarray([k.index for k in builder.keyframes])
+        out["pg_keyframes"] = builder.n_keyframes()
         out["pg_loop_factors"] = n_loops
         out["pg_cost_before"] = float(hist[0])
         out["pg_cost_after"] = float(hist[-1])
         out["pg_ate_sim3_before"] = ev.ate_rmse(kf_t, gt[kf_idx], align=True, with_scale=True)
         out["pg_ate_sim3"] = ev.ate_rmse(g_opt.t.cpu().numpy(), gt[kf_idx], align=True,
                                          with_scale=True)
+    p = builder.build_problem(min_obs=2, device=runner.device) if args.ba else None
+    if p is not None:
+        from rebvio_tpu_torch.ba import problem as bap
+
+        with timing.section("ba", sync=runner.device):
+            terms0 = bap.accumulate_terms(p)
+            p_opt, _ = bap.optimize(p, iters=10, huber_delta=3.0)
+            terms1 = bap.accumulate_terms(p_opt)
+        n_obs = max(int(terms0.n_obs), 1)
+        kf_idx = np.asarray([k.index for k in builder.keyframes])
+        out["ba_keyframes"] = builder.n_keyframes()
+        out["ba_landmarks"] = int(p.lm_valid.sum())
+        out["ba_rms_before_px"] = float(np.sqrt(float(terms0.cost) / n_obs))
+        out["ba_rms_after_px"] = float(np.sqrt(float(terms1.cost) / n_obs))
+        out["ba_ate_sim3"] = ev.ate_rmse(p_opt.t.cpu().numpy(), gt[kf_idx], align=True,
+                                         with_scale=True)
     out["ate_sim3"] = ev.ate_rmse(res.position, gt, align=True, with_scale=True)
     out["ate_se3"] = ev.ate_rmse(res.position, gt, align=True, with_scale=False)
     print(json.dumps(out))
+    if args.timing:
+        print(timing.report(), file=sys.stderr)
     return 0
 
 

@@ -12,7 +12,9 @@ graph is held to); on the CPU they always run eagerly.  Modes, as in the JAX
 runner: streaming (``run``, ``process_frame``), exact chunks
 (``run(seq, chunk=N)``: N steps in one replay), pipelined chunks
 (``run(seq, chunk=N, pipelined=True)``: N detections at the chunk's
-threshold, then N estimates, in one replay) and paced (``run_realtime``)."""
+threshold, then N estimates, in one replay), paced (``run_realtime``) and
+mapped (``run_mapped``: exact chunks that also emit the keyframe-map
+builder's per-frame trace, read back once a chunk)."""
 
 from __future__ import annotations
 
@@ -29,13 +31,18 @@ from rebvio_tpu_torch import resolve_device
 from rebvio_tpu_torch import types as T
 from rebvio_tpu_torch.camera import Undistorter
 from rebvio_tpu_torch.configs import PipelineConfig
-from rebvio_tpu_torch.graph import SlotLayout, StepProgram, copy_tree_, odometry_view
-from rebvio_tpu_torch.pipeline import frontend_matrices, step_chunk, step_chunk_pipelined
+from rebvio_tpu_torch.graph import (ODO_WORDS, SlotLayout, StepProgram, copy_tree_,
+                                    odometry_view, pack_trace, trace_words, unpack_trace)
+from rebvio_tpu_torch.pipeline import (frontend_matrices, step_chunk, step_chunk_pipelined,
+                                       step_chunk_traced)
 
 
 # staging slots per program: run_realtime's default of 3 frames in flight,
 # plus the one being packed
 RING_SLOTS = 4
+# what one replay of a program runs: exact chunks (streaming is a chunk of
+# one), pipelined chunks, exact chunks with the mapping trace
+MODES = {"exact": step_chunk, "pipelined": step_chunk_pipelined, "traced": step_chunk_traced}
 
 
 @dataclasses.dataclass
@@ -81,8 +88,8 @@ class VioRunner:
         self._init_state = T.init_vio_state(config, self.device)
         # with a graph, the static state: updated in place by every replay
         self.state = T.tree_map(torch.clone, self._init_state)
-        # (frames per replay, pipelined) -> program
-        self._programs: Dict[Tuple[int, bool], StepProgram] = {}
+        # (frames per replay, mode of MODES) -> program
+        self._programs: Dict[Tuple[int, str], StepProgram] = {}
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.last_event: Optional[torch.cuda.Event] = None
         self._last_ts: Optional[int] = None
@@ -103,11 +110,14 @@ class VioRunner:
             return torch.stack([self.undistorter(raw[k]) for k in range(raw.shape[0])])
         return raw.to(torch.float32) * self.config.image_gain
 
-    def _steps(self, state, raw, imu, dts, fn=step_chunk):
-        """Undistortion (or the cast and gain) and ``fn``
-        (``pipeline.step_chunk`` or ``step_chunk_pipelined``) over a slot's
-        frames: what one replay runs."""
-        return fn(state, self._frames(raw), imu, dts, self.config, self.mats)
+    def _steps(self, state, raw, imu, dts, mode: str = "exact"):
+        """Undistortion (or the cast and gain) and the step function of
+        ``mode`` over a slot's frames: what one replay runs.  The traced
+        mode's trace comes back packed (``graph.pack_trace``)."""
+        out = MODES[mode](state, self._frames(raw), imu, dts, self.config, self.mats)
+        if mode == "traced":
+            return out[0], out[1], pack_trace(out[2])
+        return out
 
     def _frame_inputs(self, image, ts_us: int, imu_ts, imu_gyro, imu_acc):
         """(image, gyro, acc, ts, dt) of one frame: the IMU samples since the
@@ -120,19 +130,18 @@ class VioRunner:
         self._last_ts = ts_us
         return image, imu_gyro[c:j], imu_acc[c:j], imu_ts[c:j], dt
 
-    def _stage(self, frames, pipelined: bool = False):
+    def _stage(self, frames, mode: str = "exact"):
         """Stage the frames' inputs (a list of ``_frame_inputs``) in a slot of
-        the program for their count (and mode).  Returns (program, slot)."""
-        key = (len(frames), pipelined)
+        the program for their count and ``mode``.  Returns (program, slot)."""
+        key = (len(frames), mode)
         prog = self._programs.get(key)
         if prog is None:
             image = np.asarray(frames[0][0])
             layout = SlotLayout(len(frames), image.shape, image.dtype,
                                 self.config.imu.sample_max)
-            fn = functools.partial(self._steps,
-                                   fn=step_chunk_pipelined if pipelined else step_chunk)
-            prog = StepProgram(fn, layout, self.device, RING_SLOTS, self.graph,
-                               self._copy_stream)
+            words = trace_words(self.config.detector.keylines_max) if mode == "traced" else 0
+            prog = StepProgram(functools.partial(self._steps, mode=mode), layout, self.device,
+                               RING_SLOTS, self.graph, self._copy_stream, trace_words=words)
             self._programs[key] = prog
         return prog, prog.stage(frames)
 
@@ -143,6 +152,14 @@ class VioRunner:
     def _seq_frame(self, seq, i: int):
         return self._frame_inputs(seq.images[i], int(seq.ts_us[i]), seq.imu_ts_us,
                                   seq.imu_gyro, seq.imu_acc)
+
+    def continue_after(self, ts_us: int, imu_ts) -> None:
+        """Continue a stream after its frame at ``ts_us`` (a resumed state):
+        the next frame's interval is taken from it, and the IMU samples of
+        ``imu_ts`` (the stream the frames will be passed with) up to it count
+        as consumed."""
+        self._last_ts = int(ts_us)
+        self._imu_cursor = int(np.searchsorted(np.asarray(imu_ts), ts_us, side="right"))
 
     def process_frame(self, image, ts_us: int, imu_ts, imu_gyro, imu_acc) -> T.Odometry:
         """Process one frame given the entire IMU stream; the runner keeps a
@@ -163,9 +180,9 @@ class VioRunner:
         odometry is read back once, at the end."""
         n = len(seq.images)
         size = chunk if chunk and chunk > 1 else 1
-        pipe = pipelined and size > 1
-        groups = [(range(lo, lo + size), pipe) for lo in range(0, n - n % size, size)]
-        groups += [(range(i, i + 1), False) for i in range(n - n % size, n)]
+        mode = "pipelined" if pipelined and size > 1 else "exact"
+        groups = [(range(lo, lo + size), mode) for lo in range(0, n - n % size, size)]
+        groups += [(range(i, i + 1), "exact") for i in range(n - n % size, n)]
 
         def stage(g):
             idx, mode = groups[g]
@@ -178,6 +195,78 @@ class VioRunner:
             outs.append(self._run(*staged))
             staged = nxt
         return _result([int(t) for t in seq.ts_us[:n]], torch.cat(outs))
+
+    def run_mapped(self, seq, builder, chunk: int = 0) -> RunResult:
+        """Run with a ``KeyframeMapBuilder`` at chunk speed
+        (rebvio_tpu/runner.py:230-351): ``chunk`` frames a replay of
+        ``pipeline.step_chunk_traced`` (the exact chunk, the same results as
+        streaming), whose odometry and mapping trace land in one static
+        buffer, copied to the host once a chunk (non-blocking, into one of
+        two pinned buffers).  The host builder works on chunk i after chunk
+        i+1 has been launched.  The builder's full edge map (loop closure)
+        is snapshotted only at chunk boundaries, as a device clone taken on
+        the compute stream before the next replay, so the keyframes must be
+        chunk-aligned: ``chunk`` a multiple of ``kf_every`` and ``kf_phase ==
+        (chunk - 1) % kf_every``.  The tail frames run one by one with the
+        per-frame builder."""
+        chunk = chunk or builder.kf_every
+        if chunk % builder.kf_every != 0 or builder.kf_phase != (chunk - 1) % builder.kf_every:
+            raise ValueError(
+                f"run_mapped requires chunk-aligned keyframes: chunk ({chunk}) must be a "
+                f"multiple of kf_every ({builder.kf_every}) and kf_phase ({builder.kf_phase}) "
+                f"must equal (chunk-1) % kf_every; otherwise keyframes land mid-chunk, where "
+                f"no edge-map snapshot exists")
+        n = len(seq.images)
+        kmax = self.config.detector.keylines_max
+        starts = list(range(0, n - n % chunk, chunk))
+        cuda = self.device.type == "cuda"
+        host = [torch.empty((chunk, ODO_WORDS + trace_words(kmax)), dtype=torch.float32,
+                            pin_memory=cuda) for _ in range(2)]
+        rows = []
+
+        def stage(g):
+            return self._stage([self._seq_frame(seq, i) for i in range(starts[g],
+                                                                       starts[g] + chunk)],
+                               "traced")
+
+        def process(rows_host, event, snapshot):
+            if event is not None:
+                event.synchronize()                 # the chunk's one readback
+            buf = rows_host.numpy()
+            odo = buf[:, :ODO_WORDS].copy()
+            valid, match_id, pos_img, rho, K = unpack_trace(buf[:, ODO_WORDS:], kmax)
+            for k in range(chunk):
+                builder.add_frame_arrays(valid[k], match_id[k], pos_img[k], rho[k], odo[k, 0:3],
+                                         odo[k, 3:6], K_scale=float(K[k]),
+                                         edge_map=snapshot if k == chunk - 1 else None)
+            rows.append(odo)
+
+        pending = None
+        staged = stage(0) if starts else None
+        for g in range(len(starts)):
+            nxt = stage(g + 1) if g + 1 < len(starts) else None
+            prog = staged[0]
+            self._run(*staged)
+            h = host[g % 2]
+            h.copy_(prog.buf, non_blocking=cuda)
+            event = None
+            if cuda:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+            snapshot = T.tree_map(torch.clone, self.state.edge_map) if builder.store_maps else None
+            if pending is not None:
+                process(*pending)
+            pending = (h, event, snapshot)
+            staged = nxt
+        if pending is not None:
+            process(*pending)
+        for i in range(n - n % chunk, n):          # tail: the per-frame builder
+            odo = self._run(*self._stage([self._seq_frame(seq, i)])).cpu().numpy()
+            builder.add_frame(self.state.edge_map, odo[0, 0:3], odo[0, 3:6],
+                              K_scale=float(self.state.K))
+            rows.append(odo)
+        packed = torch.from_numpy(np.concatenate(rows)) if rows else torch.zeros((0, ODO_WORDS))
+        return _result([int(t) for t in seq.ts_us[:n]], packed)
 
     def run_realtime(self, seq, speed: float = 1.0, queue_size: int = 2,
                      inflight: int = 3) -> RealtimeResult:

@@ -85,8 +85,8 @@ class EdgeMap(_TensorTree):
 
 
 def empty_edge_map(kmax: int, rows: int, cols: int, field_scale: int = 1,
-                   device="cpu") -> EdgeMap:
-    z = dict(device=device)
+                   device="cuda") -> EdgeMap:
+    z = dict(device=resolve_device(device))
     f = torch.zeros((kmax,), dtype=f32, **z)
     f2 = torch.zeros((kmax, 2), dtype=f32, **z)
     i = torch.full((kmax,), -1, dtype=i32, **z)
@@ -142,9 +142,10 @@ class SabState(_TensorTree):
     b_est: torch.Tensor  # [3]
 
 
-def init_sab_state(cfg, device="cpu") -> SabState:
+def init_sab_state(cfg, device="cuda") -> SabState:
     import math
 
+    device = resolve_device(device)
     X = torch.tensor([math.pi / 4, 0.0, cfg.g_norm, 0.0, 0.0, 0.0, 0.0], dtype=f32,
                      device=device)
     P = torch.diag(torch.tensor([
@@ -173,7 +174,8 @@ class ImuState(_TensorTree):
     acc_hist: torch.Tensor   # [4,3]
 
 
-def init_imu_state(device="cpu") -> ImuState:
+def init_imu_state(device="cuda") -> ImuState:
+    device = resolve_device(device)
     z = dict(dtype=f32, device=device)
     return ImuState(
         Bg=torch.zeros(3, **z),

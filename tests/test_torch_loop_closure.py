@@ -333,7 +333,7 @@ def test_run_cli_pose_graph(capsys):
 def test_run_cli_rejects_unported_flags(capsys):
     from rebvio_tpu_torch import run as run_mod
 
-    for flags in (["--ba"], ["--dataset", "euroc"],
+    for flags in (["--loader", "python"], ["--dataset", "euroc"],
                   ["--preset", "euroc-fast"], ["--platform", "cpu"]):
         with pytest.raises(SystemExit):
             run_mod.main(flags)

@@ -111,6 +111,8 @@ def test_port_imports_no_jax():
     for module in ("ops/sab.py", "ops/imu.py", "ops/kernels.py", "camera.py", "pipeline.py",
                    "runner.py", "interop.py", "profile_step.py", "run.py",
                    "ba/pose_graph.py", "ba/loop_closure.py", "ba/keyframe_map.py",
+                   "ba/problem.py", "ba/distributed.py", "utils/checkpoint.py",
+                   "utils/timing.py", "utils/logging.py", "utils/visualize.py",
                    "tools/jfa_ab.py"):
         assert "rebvio_tpu_torch/" + module in walked, module
     for path in files:

@@ -61,8 +61,8 @@ def test_runner_modes_match_jax(df_mode, matcher, vio, n):
         jax.clear_caches()
     a, b, c = (VioRunner(tc, undistort=vio, device="cpu") for _ in range(3))
     ra, rb, rc = a.run(seq), b.run(seq, chunk=4), c.run(seq, chunk=4, pipelined=True)
-    assert sorted(b._programs) == [(1, False), (4, False)]
-    assert sorted(c._programs) == [(1, False), (4, True)]
+    assert sorted(b._programs) == [(1, "exact"), (4, "exact")]
+    assert sorted(c._programs) == [(1, "exact"), (4, "pipelined")]
     for f in ("ts_us",) + ODO:
         np.testing.assert_array_equal(getattr(rb, f), getattr(ra, f), err_msg=f)
     for x, y in zip(tT.tree_leaves(a.state), tT.tree_leaves(b.state)):

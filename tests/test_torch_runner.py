@@ -239,7 +239,7 @@ def test_run_chunk_equals_streaming():
     a = VioRunner(tc, undistort=True, device="cpu")
     b = VioRunner(tc, undistort=True, device="cpu")
     ra, rb = a.run(seq), b.run(seq, chunk=4)
-    assert sorted(b._programs) == [(1, False), (4, False)]
+    assert sorted(b._programs) == [(1, "exact"), (4, "exact")]
     for f in ("ts_us",) + ODO:
         np.testing.assert_array_equal(getattr(rb, f), getattr(ra, f), err_msg=f)
     for x, y in zip(tT.tree_leaves(a.state), tT.tree_leaves(b.state)):
@@ -247,7 +247,7 @@ def test_run_chunk_equals_streaming():
     assert ra.run_ok.all() and ra.num_matches[-1] > tc.core.global_min_matches_threshold
     b.reset()
     rp = b.run(seq, chunk=4, pipelined=True)
-    assert sorted(b._programs) == [(1, False), (4, False), (4, True)]
+    assert sorted(b._programs) == [(1, "exact"), (4, "exact"), (4, "pipelined")]
     assert rp.run_ok.all() and rp.num_matches[0] == 0
     # the threshold held for each chunk: JAX's tolerance against the exact
     # mode (tests/test_scan_chunk.py)
@@ -371,7 +371,7 @@ def test_run_cli_chunk_and_realtime(capsys):
     assert run_mod.main(base + ["--realtime", "1000", "--rt-queue", "1"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["rt_processed"] + out["rt_dropped"] == 6 and out["frames"] == out["rt_processed"]
-    for flags in (["--realtime", "1", "--chunk", "4"], ["--chunk", "4", "--pose-graph"],
+    for flags in (["--realtime", "1", "--chunk", "4"], ["--realtime", "1", "--pose-graph"],
                   ["--df-mode", "raster", "--matcher", "tube"]):
         with pytest.raises(SystemExit):
             run_mod.main(base + flags)
