@@ -111,7 +111,35 @@ Phases (any failure exits non-zero):
      optimize's history, accept pattern, poses and inverse depths reported
      beside JAX's; the CLI (run.main) with --ba, with --pose-graph --chunk 8,
      and --checkpoint-out at frame 60 then --resume over frames 60..119
-     (equal to the 120-frame run's tail and final state bit for bit).
+     (equal to the 120-frame run's tail and final state bit for bit);
+ 10. batched multi-sequence VIO (parallel/batch.py), B = 8 lanes: phase 4's
+     and phase 7's five 120-frame distorted streams (seed 0, seed 1, rot18,
+     noise, blur), then the first three again, through
+     VioRunner(PipelineConfig(), undistort=True, batch=8).run_batched
+     (undistortion over the batch, torch.func.vmap of pipeline.step, each
+     kernel launched once a batched step with a lane axis): eager, its steps
+     under set_sync_debug_mode("error"), then one CUDA graph a batched step,
+     bit-identical, counters as in 3 (K1, K2, K3, K4, K5 one call a batched
+     step, K5's two launches, chol_inverse three); no op through vmap's
+     per-lane fallback; lanes 5-7 equal lanes 0-2 bit for bit; each lane
+     within VIO_BOUNDS of its stream's unbatched graphed run (phases 4, 7)
+     and inside its reference-binary golden's bound; each batched kernel,
+     torch.func.vmap of its wrapper on the recorded [8, ...] inputs of one
+     batched step (frame 16, the SAB filter engaged), against its plain
+     version under vmap lane by lane at phase 2's tolerances and against 8
+     one-lane calls bit for bit, with its time, 8x its one-lane bound and
+     the plain version's time; the CLI's --dataset euroc on an ASL-format
+     tree of phase 4's seed-0 stream (uint8 frames, rows cycling through the
+     five PNG filters, IMU, ground truth; tests/torch_asl.py) with --loader
+     python and --loader native (built from
+     native/loader.cpp; a failed build is reported with the compiler's
+     message), each equal to a graphed VioRunner.run on the same frames bit
+     for bit, with both loaders' decode rates and the ATE; the
+     keyline-sharded LM solve (parallel/keyline_shard.py) at world size 1
+     over NCCL against kernels.minimize_vel on phase 2's frame pair (vel
+     rtol 1e-4, forward ids equal, 1 + iterations single-pass launches) and
+     make_pod_mesh at (1, 1); profile_step --vio --graph with and without
+     --batch 8 (operations, device busy and idle share a (batched) step).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -494,6 +522,17 @@ def check_minimize_vel(torch, kernels, label, args):
                             geom)[0]
     torch.cuda.synchronize()
     repeat = all(bits_equal(torch, a, b) for a, b in zip(got, again))
+    rec, error = mv_gap(torch, label, got, ref, first)
+    rec["two_launches_bit_identical"] = repeat
+    if not repeat:
+        return rec, f"minimize_vel ({label}): two launches on the same input differ"
+    return rec, error
+
+
+def mv_gap(torch, label, got, ref, first):
+    """The solve's outputs ``got`` (``minimize_vel(..., debug=True)``)
+    against the plain version's ``ref`` at MV_TOL; ``first``: the first
+    pass's score.  Returns (record, error)."""
     vel, JtJ, JtF, score, res, mif, gains, acc, trials = got
     rvel, rJtJ, rJtF, rscore, rres, rmif, rgains, racc, rtrials = ref
     acc_l, racc_l = acc.tolist(), racc.tolist()
@@ -507,21 +546,20 @@ def check_minimize_vel(torch, kernels, label, args):
     rec = {"check": "minimize_vel vs minimize_vel_plain", "case": label,
            "keylines_matched": int((mif >= 0).sum()),
            "accepts": acc_l, "accepts_plain": racc_l, "gains": gains.tolist(),
-           "gains_plain": rgains.tolist(), "first_flip": flip,
-           "two_launches_bit_identical": repeat, "abs_err": err, "tol": MV_TOL,
-           "vel": vel.tolist(), "score": float(score)}
+           "gains_plain": rgains.tolist(), "first_flip": flip, "abs_err": err, "tol": MV_TOL,
+           "rel_err": dict(vel=err["vel"] / max(float(rvel.abs().max()), 1e-30),
+                           gram=err["gram"] / max(gmax, 1e-30),
+                           score=err["score"] / max(abs(float(rscore)), 1e-30)),
+           "gram_max": gmax, "vel": vel.tolist(), "score": float(score)}
     rec["max_abs_err"] = max(err["vel"], err["gram"], err["score"], err["residuals"])
-    if not repeat:
-        return rec, f"minimize_vel ({label}): two launches on the same input differ"
     for t in (vel, JtJ, JtF, score, res):
         if not bool(torch.isfinite(t).all()):
             return rec, f"minimize_vel ({label}): non-finite output"
     if flip is not None:
         # the accepted score before the iteration that flipped, on both sides
         worst = 0.0
-        for a_l, t_l, f0 in ((acc_l, trials.tolist(), float(first)),
-                             (racc_l, rtrials.tolist(), float(first))):
-            before = ([f0] + [t for a, t in zip(a_l[:flip], t_l[:flip]) if a])[-1]
+        for a_l, t_l in ((acc_l, trials.tolist()), (racc_l, rtrials.tolist())):
+            before = ([float(first)] + [t for a, t in zip(a_l[:flip], t_l[:flip]) if a])[-1]
             worst = max(worst, abs(before - t_l[flip]) / max(abs(before), 1e-30))
         rec["flip_numerator_rel"] = worst
         if worst > MV_TOL["flip_rel"]:
@@ -535,6 +573,47 @@ def check_minimize_vel(torch, kernels, label, args):
                            ("residuals", err["residuals"] <= MV_TOL["res_abs"]),
                            ("ids", err["ids_differing"] == 0)) if not ok]
     return rec, (f"minimize_vel ({label}): {bad} out of tolerance: {err}" if bad else None)
+
+
+def plain_gap(torch, name, label, got, ref, exact):
+    """A kernel's outputs ``got`` against its plain version's ``ref`` on one
+    case (phase 2's test): the EXACT planes bit for bit (the count of equal
+    entries of each into ``exact``), the same finite float32 entries, then
+    the largest absolute and relative gaps (estimate_bias: normwise, over the
+    output's largest entry: P and Xvw hold entries near 0).  Returns (max
+    abs, max rel, error or None)."""
+    worst_abs = worst_rel = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        for plane in EXACT[name].get(i, ()):
+            gp, rp = (g, r) if plane is None else (g[plane], r[plane])
+            key = f"{label}: out{i}" + ("" if plane is None else f"[{plane}]")
+            exact[key] = [int((gp == rp).sum()), int(gp.numel())]
+            if not bits_equal(torch, gp, rp):
+                return worst_abs, worst_rel, (f"{name}: {key} differs in "
+                                              f"{int((gp != rp).sum())} of {gp.numel()} entries")
+        if g.dtype == torch.float32:
+            fin = torch.isfinite(r)
+            if not torch.equal(fin, torch.isfinite(g)):
+                return worst_abs, worst_rel, f"{name}: finite masks differ ({label}, out{i})"
+            d = (g[fin] - r[fin]).abs()
+            if d.numel():
+                worst_abs = max(worst_abs, float(d.max()))
+                den = (r[fin].abs().max().clamp(min=1e-30) if name == "estimate_bias"
+                       else r[fin].abs().clamp(min=1e-6))
+                worst_rel = max(worst_rel, float((d / den).max()))
+    return worst_abs, worst_rel, None
+
+
+def chol_gap(torch, got, want):
+    """chol_inverse's ``got`` against its plain version's ``want``: (NaN and
+    the finite entries in the same places, the largest gap over the finite
+    entries, the largest finite entry of ``want``)."""
+    fin = torch.isfinite(want)
+    same_mask = bool(torch.equal(fin, torch.isfinite(got))
+                     and torch.equal(torch.isnan(want), torch.isnan(got)))
+    d = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    scale = float(want[fin].abs().max()) if bool(fin.any()) else 1.0
+    return same_mask, d, scale
 
 
 def vio_golden_check(np, ev, res, K_fin, g_fin, path, bounds, n: int):
@@ -907,6 +986,432 @@ def phase9(np, torch, kernels, card, vcfg, vseq, vmodes, mapper, wall, vlaunches
     return 0
 
 
+# Phase 10.  Batched multi-sequence VIO (parallel/batch.py): the lanes are
+# phase 4's and phase 7's five 120-frame distorted streams, then the first
+# three again; each lane's reference-binary golden and its bound (phase 4's
+# for seed 0, ANCHORS' for the others).  A lane against its stream's
+# unbatched graphed run: the bounds phase 4 holds the port's VIO run to
+# against JAX (VIO_BOUNDS' cross-ATEs and match tolerance): the batched
+# step's products run as batched cuBLAS products, which may sum in another
+# order than the unbatched ones.
+BATCH = 8
+BATCH_LANES = ["vio", "seed1", "rot18", "noise", "blur", "vio", "seed1", "rot18"]
+BATCH_GOLDENS = {"vio": ("anchor_ref_trajectory_seed0_120.txt", REF_ATE_BOUND_M),
+                 **{name: (golden, bound) for name, golden, _kw, n, bound in ANCHORS
+                    if n == N_VIO}}
+BATCH_LANE_BOUNDS = dict(ate_sim3_m=VIO_BOUNDS["ate_sim3_m"],
+                         ate_rigid_m=VIO_BOUNDS["ate_rigid_m"],
+                         match_rtol=VIO_BOUNDS["match_rtol"])
+# the launchers of the step's kernels (ops/kernels.py), each taking [B, ...]
+# lanes: what the vmap rules launch once a batched step (recorded there)
+BATCH_LAUNCHERS = {"att_flood": "_launch_att_flood", "minimize_vel": "_launch_minimize_vel",
+                   "tube_match": "_launch_tube_match", "reg_ekf": "_launch_match_reg_ekf",
+                   "estimate_bias": "_launch_estimate_bias",
+                   "chol_inverse": "_launch_chol_inverse"}
+# the name of each batched kernel's test in phase 2 (EXACT, TOL_REL): K5 as
+# the step runs it, the fused stage
+BATCH_GAP = {"att_flood": "att_flood", "tube_match": "tube_match", "reg_ekf": "match_reg_ekf",
+             "estimate_bias": "estimate_bias"}
+EUROC_N = N_VIO
+
+
+def lane_wrappers(kernels, linalg, name: str, args, debug: bool = False):
+    """The wrapper the step calls for kernel ``name`` and its plain version,
+    each a function of one lane's tensors, and the [B, ...] lanes of those
+    tensors, from the arguments that the batched step gave the kernel's
+    launcher (BATCH_LAUNCHERS).  ``debug``: minimize_vel's accept flags,
+    gains and trial scores too."""
+    if name == "att_flood":
+        stack, *geom = args
+        return ([stack], lambda s: kernels.att_flood(s, *geom),
+                lambda s: kernels.att_flood_plain(s, *geom))
+    if name == "minimize_vel":      # (name, 5 planes, residuals None, vel, att, geom, iters)
+        _n, *planes, _res, vel0, att, geom, iters = args
+        return ([*planes, vel0, att],
+                lambda *t: kernels.minimize_vel(*t, geom, iters, debug=debug),
+                lambda *t: kernels.minimize_vel_plain(*t, geom, iters, debug=debug))
+    if name == "tube_match":
+        *ts, geom = args
+        return (ts, lambda *t: kernels.tube_match(*t, geom),
+                lambda *t: kernels.tube_match_plain(*t, geom))
+    if name == "reg_ekf":           # the launcher's order is kernels._MRE_NAMES'
+        ins, p = args
+
+        def order(t):
+            return (t[13], *t[:8], t[14], t[15], *t[8:13], t[16], t[17], p)
+
+        return (list(ins), lambda *t: kernels.match_reg_ekf(*order(t)),
+                lambda *t: kernels.match_reg_ekf_plain(*order(t)))
+    if name == "estimate_bias":
+        ins, iters = args
+        return (list(ins), lambda *t: kernels.estimate_bias(*t, iters),
+                lambda *t: kernels.estimate_bias_plain(*t, iters))
+    return list(args), linalg.chol_inverse, linalg.chol_inverse_plain
+
+
+def batched_kernels(torch, kernels, recorded, bounds, card):
+    """Each batched kernel as the batched step reaches it, torch.func.vmap of
+    its wrapper over the [B, ...] lanes that the step gave its launcher
+    (``recorded``): against the plain version under vmap on the same lanes,
+    lane by lane at phase 2's tolerances, and against B one-lane calls of
+    the wrapper, bit for bit; its time, B x phase 2's one-lane bound
+    (``bounds``), the plain version's time.  Returns (error or None, the
+    kernels' report lines)."""
+    from rebvio_tpu_torch.geometry import linalg
+
+    vmap = torch.func.vmap
+
+    def as_tuple(out):
+        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+    entries = []
+    for name in BATCH_LAUNCHERS:
+        args = recorded.get(name)
+        if args is None:
+            return f"phase 10: the batched step never launched {name}", None
+        lanes_in, fn, plain_fn = lane_wrappers(kernels, linalg, name, args, debug=True)
+        got = as_tuple(vmap(fn)(*lanes_in))
+        ref = as_tuple(vmap(plain_fn)(*lanes_in))
+        singles = [as_tuple(fn(*(t[b] for t in lanes_in))) for b in range(BATCH)]
+        torch.cuda.synchronize()
+        same, err_b = True, 0.0
+        for i, g in enumerate(got):
+            w = torch.stack([s[i] for s in singles])
+            same &= bits_equal(torch, g, w)
+            if g.is_floating_point():
+                fin = torch.isfinite(w)
+                if bool(fin.any()):
+                    err_b = max(err_b, float((g[fin] - w[fin]).abs().max()))
+        err, rel, error, exact, tol, per_lane = 0.0, 0.0, None, {}, None, []
+        for b in range(BATCH):
+            g_b, r_b = [o[b] for o in got], [o[b] for o in ref]
+            if name == "minimize_vel":
+                p_, r_, s_, gr_, u_, v_, at_ = (t[b] for t in lanes_in)
+                first = kernels.try_vel(p_, r_, s_, gr_, u_, torch.zeros_like(r_), v_, at_,
+                                        args[9])[0]
+                mv, error = mv_gap(torch, f"lane {b}", g_b, r_b, first)
+                err, tol = max(err, mv["max_abs_err"]), MV_TOL
+                rel = max([rel, *mv["rel_err"].values()])
+                per_lane.append({k: mv[k] for k in ("case", "first_flip", "abs_err", "rel_err",
+                                                    "gram_max")})
+            elif name == "chol_inverse":
+                same_mask, d, scale = chol_gap(torch, g_b[0], r_b[0])
+                err, rel, tol = max(err, d), max(rel, d / scale), CHOL_TOL_REL
+                if not same_mask or d > CHOL_TOL_REL * scale:
+                    error = f"chol_inverse (lane {b}): {d} against {CHOL_TOL_REL} x {scale}"
+            else:
+                gap = BATCH_GAP[name]
+                gap_abs, gap_rel, error = plain_gap(torch, gap, f"lane {b}", g_b, r_b, exact)
+                err, rel, tol = max(err, gap_abs), max(rel, gap_rel), TOL_REL[gap]
+                if error is None and gap_rel > tol:
+                    error = f"{gap} (lane {b}): max relative error {gap_rel:.3g} above {tol}"
+            if error:
+                break
+        lanes_in, fn, plain_fn = lane_wrappers(kernels, linalg, name, args)
+        batched_fn, plain_b = vmap(fn), vmap(plain_fn)
+        ms = median_ms(torch, lambda: batched_fn(*lanes_in))
+        ms_singles = median_ms(torch, lambda: [fn(*(t[b] for t in lanes_in))
+                                              for b in range(BATCH)])
+        plain_ms = median_ms(torch, lambda: plain_b(*lanes_in), reps=5, warm=1)
+        one = bounds.get(name)
+        rec = dict(name=f"{name} (batched, B={BATCH})", kernel=name, lanes=BATCH,
+                   shapes=[list(t.shape) for t in lanes_in],
+                   max_abs_err=err, max_rel_err=rel, tol=tol, exact_vs_plain=exact,
+                   lanes_vs_plain=per_lane,
+                   equals_b_unbatched_launches=same, max_abs_err_vs_b_launches=err_b,
+                   ms=ms, ms_b_unbatched_launches=ms_singles, plain_ms=plain_ms,
+                   bound_ms=None if one is None else BATCH * one[0],
+                   bound_by=None if one is None else one[1], card=card)
+        print(json.dumps({"check": "batched kernel (vmap of its wrapper) vs its plain version "
+                                   "under vmap and vs B one-lane calls", **rec}), flush=True)
+        if error:
+            return f"phase 10: batched {name} against its plain version: {error}", None
+        if not same:
+            return f"phase 10: batched {name} differs from {BATCH} unbatched launches", None
+        entries.append(rec)
+    return None, entries
+
+
+def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, bounds,
+            solve_args, mv_args, map1, cfg):
+    """Phase 10 of the module docstring.  ``streams`` / ``anchor_runs``: the
+    five parity VIO streams and their graphed runs (phases 4, 7);
+    ``unbatched_ms``: phase 4's graphed ms/frame; ``bounds``: phase 2's
+    (bound_ms, bound_by) of each kernel at one lane's shapes;
+    ``solve_args``: the (old map, field) of phase 2's frame-1 LM solve and
+    ``mv_args`` its kernels.minimize_vel arguments, ``map1`` the frame-1 map,
+    ``cfg`` the VO config.  Returns
+    (error or None, the batched kernels' report lines, the graphed batched
+    run's launch counts)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rebvio_tpu_torch import eval as ev, run as run_mod
+    from rebvio_tpu_torch.data import euroc, native_loader
+    from rebvio_tpu_torch.graph import odometry_view
+    from rebvio_tpu_torch.parallel import keyline_shard, multihost
+    from rebvio_tpu_torch.profile_step import main as profile_main
+    from rebvio_tpu_torch.runner import VioRunner
+    from tests.torch_asl import write_asl_tree
+
+    seqs = [streams[name] for name in BATCH_LANES]
+    n = N_VIO
+    t_phase = time.perf_counter()
+    # ---- the batched kernels' inputs: one eager batched step's launches
+    # (frame 16, the SAB filter engaged), recorded at the launchers
+    recorded = {}
+    originals = {name: getattr(kernels, fn) for name, fn in BATCH_LAUNCHERS.items()}
+
+    def recorder(name):
+        def call(*args):
+            if name not in recorded or (name == "chol_inverse" and args[0].shape[-1] == 7):
+                recorded[name] = tuple(a.clone() if torch.is_tensor(a) else
+                                       ([t.clone() for t in a] if isinstance(a, list) else a)
+                                       for a in args)
+            return originals[name](*args)
+        return call
+
+    # ---- eager, the eager steps under set_sync_debug_mode("error")
+    eager = VioRunner(vcfg, undistort=True, device="cuda", graph=False, batch=BATCH)
+    # the build, the caches; and every op that vmap runs lane by lane (its
+    # slow fallback, which warns when asked to)
+    import warnings
+
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eager.run_batched(seqs, range(0, 2))
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    fallbacks = sorted({str(w.message).split("batching rule for ")[-1].split(".")[0]
+                        for w in caught if "batching rule" in str(w.message)})
+    eager.reset()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rows = []
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(n):
+            if i == 16:
+                for name, fn in BATCH_LAUNCHERS.items():
+                    setattr(kernels, fn, recorder(name))
+            rows.append(eager.process_batch(seqs, i))
+            if i == 16:
+                for name, fn in BATCH_LAUNCHERS.items():
+                    setattr(kernels, fn, originals[name])
+    except RuntimeError as e:
+        return f"phase 10: the eager batched step synced the host: {e}", None, None
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for name, fn in BATCH_LAUNCHERS.items():
+            setattr(kernels, fn, originals[name])
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / n * 1e3
+    eager_launches = dict(kernels.LAUNCHES)
+    eager_rows = torch.stack(rows, dim=1).cpu()
+    # ---- one CUDA graph a batched step: the main path of this phase
+    runner = VioRunner(vcfg, undistort=True, device="cuda", batch=BATCH)
+    runner.run_batched(seqs, range(0, 2))         # warm-up and capture
+    runner.reset()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = runner.run_batched(seqs)                # ends in the one readback
+    graph_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {**{k: 0 for k in kernels.LAUNCHES}, "att_flood": n, "minimize_vel": n,
+            "tube_match": n, "reg_ekf": n, "estimate_bias": n, "chol_inverse": 3 * n}
+    eager_odo = odometry_view(eager_rows)          # leaves [B, n, ...]
+    same_eager = all(np.array_equal(getattr(r, f), getattr(eager_odo, f)[b].numpy())
+                     for b, r in enumerate(res)
+                     for f in ("orientation", "position", "num_matches", "run_ok"))
+    repeated = all(all(np.array_equal(getattr(res[b], f), getattr(res[b - 5], f))
+                       for f in ("orientation", "position", "num_matches", "run_ok"))
+                   for b in range(5, BATCH))
+    lanes, bad = [], []
+    for b, (name, r) in enumerate(zip(BATCH_LANES, res)):
+        unb = anchor_runs[name]
+        rel = np.abs(r.num_matches[1:] - unb.num_matches[1:]) / np.maximum(unb.num_matches[1:], 1)
+        golden, bound = BATCH_GOLDENS[name]
+        cross, ate, ref_ate = anchor_check(np, ev, r, seqs[b], golden, n)
+        rec = dict(lane=b, stream=name,
+                   vs_unbatched=dict(ate_sim3_m=ev.ate_rmse(r.position, unb.position),
+                                     ate_rigid_m=ev.ate_rmse(r.position, unb.position,
+                                                             with_scale=False),
+                                     max_match_rel=float(rel.max()),
+                                     max_pos_abs_m=float(np.abs(r.position
+                                                                - unb.position).max())),
+                   ref_cross_ate_sim3_m=cross, ref_bound_m=bound, ate_gt_m=ate,
+                   ref_ate_gt_m=ref_ate, run_ok_all=bool(r.run_ok.all()))
+        vs = rec["vs_unbatched"]
+        for ok, what in ((vs["ate_sim3_m"] < BATCH_LANE_BOUNDS["ate_sim3_m"], "sim3 vs unbatched"),
+                         (vs["ate_rigid_m"] < BATCH_LANE_BOUNDS["ate_rigid_m"],
+                          "rigid vs unbatched"),
+                         (vs["max_match_rel"] <= BATCH_LANE_BOUNDS["match_rtol"],
+                          "matches vs unbatched"),
+                         (cross < bound, "reference golden"),
+                         (ate < ref_ate + REF_GT_MARGIN_M, "ATE vs ground truth"),
+                         (rec["run_ok_all"], "run_ok")):
+            if not ok:
+                bad.append(f"lane {b} ({name}): {what}")
+        lanes.append(rec)
+    step_ms = graph_s / n * 1e3
+    print(json.dumps({"slice": f"batched VIO, B={BATCH}: VioRunner(PipelineConfig(), "
+                               "undistort=True, batch=8).run_batched, one CUDA graph a batched "
+                               "step (undistortion over the batch, torch.func.vmap of "
+                               "pipeline.step)", "card": card, "frames": n,
+                      "ms_per_batched_step": step_ms, "ms_per_batched_step_eager": eager_ms,
+                      "frames_per_s_all_lanes": BATCH * n / graph_s,
+                      "unbatched_graph_ms_per_frame": unbatched_ms,
+                      "unbatched_frames_per_s": 1e3 / unbatched_ms,
+                      "graph_equals_eager": same_eager, "repeated_lanes_equal": repeated,
+                      "vmap_fallback_ops": fallbacks,
+                      "launches": launches, "launches_eager": eager_launches,
+                      "lane_bounds": BATCH_LANE_BOUNDS, "lanes": lanes, "failed": bad}),
+          flush=True)
+    if fallbacks:
+        return f"phase 10: vmap ran {fallbacks} through its per-lane fallback", None, None
+    if launches != want or eager_launches != want:
+        return (f"phase 10: batched launch counts {launches} (eager {eager_launches}), "
+                f"expected {want}"), None, None
+    if not (same_eager and repeated):
+        return (f"phase 10: graph equals eager {same_eager}, repeated lanes equal {repeated}",
+                None, None)
+    if bad:
+        return f"phase 10: {bad}", None, None
+
+    # ---- each batched kernel on the recorded lanes
+    err, entries = batched_kernels(torch, kernels, recorded, bounds, card)
+    if err:
+        return err, None, None
+
+    # ---- EuRoC input: an ASL tree of phase 4's seed-0 stream (uint8 frames)
+    # through the CLI with each loader, against a graphed runner on the same
+    # frames and IMU
+    vseq = streams["vio"]
+    frames_u8 = [np.clip(np.asarray(vseq.images[i]), 0, 255).astype(np.uint8)
+                 for i in range(EUROC_N)]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_asl_tree(root, frames_u8, vseq, EUROC_N, level=1)
+        write_s = time.perf_counter() - t0
+        mem = type(vseq)(images=frames_u8, ts_us=vseq.ts_us[:EUROC_N],
+                         imu_ts_us=vseq.imu_ts_us, imu_gyro=vseq.imu_gyro.astype(np.float32),
+                         imu_acc=vseq.imu_acc.astype(np.float32),
+                         gt_pos=vseq.gt_pos[:EUROC_N], gt_R_wc=vseq.gt_R_wc[:EUROC_N])
+        want_run = VioRunner(vcfg, undistort=True, device="cuda").run(mem)
+        seq = euroc.load(str(root), loader="python")
+        t0 = time.perf_counter()
+        for p in seq.image_paths:
+            euroc._read_png_gray(p)
+        rate = {"python": len(seq.image_paths) / (time.perf_counter() - t0)}
+        native_error = None
+        try:
+            ld = native_loader.NativeImageLoader(seq.image_paths, vcfg.camera.rows,
+                                                 vcfg.camera.cols,
+                                                 n_threads=euroc.NATIVE_DECODERS)
+            t0 = time.perf_counter()
+            while ld.next() is not None:
+                pass
+            rate["native"] = len(seq.image_paths) / (time.perf_counter() - t0)
+            ld.close()
+        except RuntimeError as e:               # a host loader, not a kernel
+            native_error = str(e)
+        cli = {}
+        for loader in ("python", "native"):
+            if loader == "native" and native_error is not None:
+                continue
+            recorded_runs = []
+            run_orig = run_mod.VioRunner.run
+
+            def recording_run(self, *a, **kw):
+                recorded_runs.append(run_orig(self, *a, **kw))
+                return recorded_runs[-1]
+
+            run_mod.VioRunner.run = recording_run
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    rc = run_mod.main(["--dataset", "euroc", "--root", str(root),
+                                       "--loader", loader, "--mode", "vio"])
+            finally:
+                run_mod.VioRunner.run = run_orig
+            out = json.loads(buf.getvalue().strip().splitlines()[-1])
+            cli[loader] = dict(out, rc=rc, equals_runner=same_run(np, recorded_runs[-1],
+                                                                   want_run))
+    print(json.dumps({"check": "EuRoC input: run.main --dataset euroc on an ASL tree of phase "
+                               f"4's seed-0 stream ({EUROC_N} uint8 frames, IMU, ground truth; "
+                               "rows cycling through the five PNG filters)",
+                      "card": card, "tree_write_s": write_s, "decode_frames_per_s": rate,
+                      "native_build": native_loader.BUILD_INFO,
+                      "native_error": native_error, "cli": cli}), flush=True)
+    for loader, out in cli.items():
+        if not (out["rc"] == 0 and out["equals_runner"] and out["loader"] == loader
+                and np.isfinite(out["ate_sim3"])):
+            return f"phase 10: the EuRoC CLI run ({loader}) failed: {out}", None, None
+
+    # ---- keyline-sharded tracking and the pod mesh at world size 1 over NCCL
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        old0, att0 = solve_args
+        fn = keyline_shard.make_minimize_vel_sharded(None, cfg.core, cfg.camera,
+                                                     field_scale=cfg.field_scale, use_att=True)
+        ref = kernels.minimize_vel(*mv_args)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        vel, _Rvel, old_out, score = fn(keyline_shard.shard_edge_map(old0),
+                                        keyline_shard.shard_edge_map(map1, shard_keylines=False),
+                                        att0)
+        torch.cuda.synchronize()
+        sh_launches = dict(kernels.LAUNCHES)
+        mesh = multihost.make_pod_mesh(seq_parallel=1, inner_axis="kl")
+        rel = float(((vel - ref[0]).abs() / ref[0].abs().clamp(min=1e-6)).max())
+        rec = {"check": "keyline_shard.make_minimize_vel_sharded at world size 1 (NCCL) vs "
+                        "kernels.minimize_vel, frame pair of phase 2",
+               "vel": vel.tolist(), "vel_ref": ref[0].tolist(), "vel_max_rel": rel,
+               "score": float(score), "score_ref": float(ref[3]),
+               "match_id_forward_equal": bool(torch.equal(old_out.match_id_forward, ref[5])),
+               "launches": sh_launches, "pod_mesh": list(mesh.mesh.shape),
+               "pod_mesh_dims": list(mesh.mesh_dim_names)}
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(rec), flush=True)
+    passes = 1 + cfg.core.iterations
+    if not (torch.allclose(vel, ref[0], rtol=1e-4, atol=1e-6) and rec["match_id_forward_equal"]
+            and sh_launches["try_vel"] == passes and sh_launches["minimize_vel"] == 0
+            and rec["pod_mesh"] == [1, 1]):
+        return f"phase 10: the keyline-sharded solve or the pod mesh failed: {rec}", None, None
+
+    # ---- operations per batched step, and per unbatched frame, same call
+    prof = {}
+    for label, argv in (("batched", ["--vio", "--graph", "--batch", str(BATCH), "--frames", "8"]),
+                        ("unbatched", ["--vio", "--graph", "--frames", "8"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            prof[label] = profile_main(argv)
+    print(json.dumps({"check": "profile_step --vio --graph [--batch 8], one replay a (batched) "
+                               "frame", "card": card,
+                      **{label: {k: p[k] for k in ("wall_ms_per_frame",
+                                                   "device_busy_ms_per_frame",
+                                                   "device_idle_share",
+                                                   "kernel_launches_per_frame",
+                                                   "ported_kernels_ms_per_frame",
+                                                   "ported_kernels_launches_per_frame",
+                                                   "host_syncs_per_frame")}
+                         | ({"frames_per_s_all_lanes": p["frames_per_s_all_lanes"]}
+                            if "frames_per_s_all_lanes" in p else {})
+                         for label, p in prof.items()}}), flush=True)
+    print(json.dumps({"phase": 10, "seconds": time.perf_counter() - t_phase}), flush=True)
+    return None, entries, launches
+
+
 def free_port() -> int:
     """A localhost TCP port that was free a moment ago."""
     import socket
@@ -1224,26 +1729,10 @@ def smoke(np, torch, jobs) -> int:
             got = as_list(getattr(kernels, name)(*args))
             ref = as_list(plain[name](*args))
             torch.cuda.synchronize()
-            for i, (g, r) in enumerate(zip(got, ref)):
-                for plane in EXACT[name].get(i, ()):
-                    gp, rp = (g, r) if plane is None else (g[plane], r[plane])
-                    key = f"{label}: out{i}" + ("" if plane is None else f"[{plane}]")
-                    exact[key] = [int((gp == rp).sum()), int(gp.numel())]
-                    if not bits_equal(torch, gp, rp):
-                        return fail(f"{name}: {key} differs in {int((gp != rp).sum())} "
-                                    f"of {gp.numel()} entries")
-                if g.dtype == torch.float32:
-                    fin = torch.isfinite(r)
-                    if not torch.equal(fin, torch.isfinite(g)):
-                        return fail(f"{name}: finite masks differ ({label}, out{i})")
-                    d = (g[fin] - r[fin]).abs()
-                    if d.numel():
-                        worst_abs = max(worst_abs, float(d.max()))
-                        # estimate_bias: normwise (error over the output's
-                        # largest entry: P and Xvw hold entries near 0)
-                        den = (r[fin].abs().max().clamp(min=1e-30) if name == "estimate_bias"
-                               else r[fin].abs().clamp(min=1e-6))
-                        worst_rel = max(worst_rel, float((d / den).max()))
+            gap_abs, gap_rel, error = plain_gap(torch, name, label, got, ref, exact)
+            if error:
+                return fail(error)
+            worst_abs, worst_rel = max(worst_abs, gap_abs), max(worst_rel, gap_rel)
         tol = TOL_REL[name]
         if worst_rel > tol:
             return fail(f"{name}: max relative error {worst_rel:.3g} above {tol}")
@@ -1311,13 +1800,10 @@ def smoke(np, torch, jobs) -> int:
                 [m for m in vio_chol if m.shape[-1] == 6] + [bad]))]:
         got, want = linalg.chol_inverse(m), linalg.chol_inverse_plain(m)
         torch.cuda.synchronize()
-        fin = torch.isfinite(want)
-        same_mask = bool(torch.equal(fin, torch.isfinite(got))
-                         and torch.equal(torch.isnan(want), torch.isnan(got)))
-        d = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
-        scale = float(want[fin].abs().max()) if bool(fin.any()) else 1.0
+        same_mask, d, scale = chol_gap(torch, got, want)
         chol["cases"].append({"case": label, "shape": list(m.shape), "max_abs_err": d,
-                              "max_rel_err": d / scale, "nan_entries": int((~fin).sum()),
+                              "max_rel_err": d / scale,
+                              "nan_entries": int((~torch.isfinite(want)).sum()),
                               "bit_identical": bits_equal(torch, got, want)})
         if not same_mask or d > CHOL_TOL_REL * scale:
             return fail(f"chol_inverse differs from its plain version ({label}): {chol}")
@@ -1739,13 +2225,14 @@ def smoke(np, torch, jobs) -> int:
     # the graphed runner (one runner a profile, reset between streams)
     runner = VioRunner(vcfg, undistort=True, device="cuda")
     streams = {"vio": vseq}
+    anchor_runs = {"vio": vmodes["graph"]}     # each stream's graphed run (phase 10)
     anchors_ok = True
     for name, golden, _kw, n, bound in ANCHORS:
         t0 = time.perf_counter()
         sq = streams[name] = jobs[name].get(timeout=900)
         waited = time.perf_counter() - t0
         runner.reset()
-        res = runner.run(sq)
+        res = anchor_runs[name] = runner.run(sq)
         cross, ate, ref_ate = anchor_check(np, ev, res, sq, golden, n)
         ok = bool(res.run_ok.all() and cross < bound and ate < ref_ate + REF_GT_MARGIN_M)
         anchors_ok &= ok
@@ -1890,6 +2377,14 @@ def smoke(np, torch, jobs) -> int:
     if rc:
         return rc
 
+    # ---------------- phase 10: batched multi-sequence VIO, EuRoC input,
+    # keyline-sharded tracking and the pod mesh
+    err, batched, blaunches = phase10(np, torch, kernels, card, vcfg, streams, anchor_runs,
+                                      vmodes["graph_ms"], b, vo_solve,
+                                      cases["minimize_vel"][0][1], map1, cfg)
+    if err:
+        return fail(err)
+
     # each kernel's count on the path that runs it: the VIO slice, the loop
     # closure (att_field), the field tool (nn_field), the single-pass drive
     # (try_vel: the LM solve took its place on the other paths)
@@ -1904,6 +2399,15 @@ def smoke(np, torch, jobs) -> int:
                         replaces=REPLACES[name], launches=path_launches[name],
                         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+    # the step's kernels with the lane axis, launched once a batched step on
+    # the batched main path (the Cholesky inverse has no TPU kernel: its
+    # batched line is phase 10's own)
+    for r in batched:
+        if r["kernel"] in REPLACES:
+            out.append(dict(name=r["name"], route="cuda", source=SOURCES[r["kernel"]],
+                            replaces=REPLACES[r["kernel"]], launches=blaunches[r["kernel"]],
+                            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -60,10 +60,12 @@ class _Taps:
         self.inb = torch.stack(inb)
 
     def __call__(self, img: torch.Tensor) -> torch.Tensor:
-        v = torch.where(self.inb, img.reshape(-1)[self.idx], 0.0)
+        """``img`` [..., H, W] -> [..., N]: leading dims (a batch of frames)
+        gather at the same taps."""
+        v = torch.where(self.inb, img.reshape(*img.shape[:-2], -1)[..., self.idx], 0.0)
         fx, fy = self.fx, self.fy
-        out = (v[0] * (1 - fx) * (1 - fy) + v[1] * fx * (1 - fy)
-               + v[2] * (1 - fx) * fy + v[3] * fx * fy)
+        out = (v[..., 0, :] * (1 - fx) * (1 - fy) + v[..., 1, :] * fx * (1 - fy)
+               + v[..., 2, :] * (1 - fx) * fy + v[..., 3, :] * fx * fy)
         return out
 
 
@@ -92,7 +94,9 @@ class Undistorter:
         self._taps = _Taps(self.grid, cam.rows, cam.cols)
 
     def __call__(self, raw: torch.Tensor) -> torch.Tensor:
-        if tuple(raw.shape) != self._hw:
+        """A frame [H, W], or a batch of frames [..., H, W], undistorted over
+        the batch in one gather."""
+        if tuple(raw.shape[-2:]) != self._hw:
             raise ValueError(f"Undistorter: frame shape {tuple(raw.shape)}, camera {self._hw}")
         img = raw.to(f32) * self.gain
-        return self._taps(img).reshape(self._hw)
+        return self._taps(img).reshape(raw.shape)

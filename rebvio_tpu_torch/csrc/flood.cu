@@ -50,6 +50,14 @@
 //     the parity field leave 96 blocks of 8 warps to run them.
 // The wrapper (ops/kernels.py::flood_schedule) computes the split and
 // passes the steps; any search range runs.
+//
+// Lanes: the launch floods B independent stacks ([B, 5*(rows+PAD), cols]
+// into [B, 8, rows*cols]; what torch.func.vmap of the step hands it, as
+// jax.vmap of a pallas_call adds a grid axis).  The long steps stride over
+// the B*rows*cols cells and the short steps over the B*tiles tiles of all
+// lanes, so one grid sync serves every lane; a cell's arithmetic and
+// candidate order do not depend on B, so each lane gives the bits of a
+// launch of its own.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -69,7 +77,7 @@ constexpr int kMaxSteps = 32;
 constexpr float kBig = 1e9f;
 
 struct Geom {
-  int rows, cols, pad, Rp, SR, n, tiles_x, ntiles;
+  int rows, cols, pad, Rp, SR, n, tiles_x, ntiles, B;
   float r2, scale;
 };
 
@@ -115,11 +123,16 @@ __device__ __forceinline__ int encode(const Geom& g, int yv, int c) {
 // One long step over every cell: reads `in` (or the stack on the first
 // step), writes `out`; the nine loads of a cell are issued before its
 // comparisons.
-__device__ void global_pass(const float* __restrict__ stack, State in, bool from_stack,
+__device__ void global_pass(const float* __restrict__ stacks, State in_all, bool from_stack,
                             State out, const Geom& g, int s) {
   const int sm = s % g.cols;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < g.n; i += gridDim.x * blockDim.x) {
-    const int y = i / g.cols, x = i - (i / g.cols) * g.cols;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < g.B * g.n;
+       i += gridDim.x * blockDim.x) {
+    // lane ln's cell ci; the lane's stack and state
+    const int ln = i / g.n, ci = i - ln * g.n;
+    const float* stack = stacks + (size_t)ln * g.SR * g.cols;
+    const State in{in_all.xy + (size_t)ln * g.n, in_all.src + (size_t)ln * g.n};
+    const int y = ci / g.cols, x = ci - (ci / g.cols) * g.cols;
     const float yf = (float)y, xf = (float)x;
     int cm = x + sm;
     if (cm >= g.cols) cm -= g.cols;
@@ -176,32 +189,38 @@ __device__ __forceinline__ void finish(const float* __restrict__ stack, const Ge
 }
 
 __global__ void __launch_bounds__(kThreads)
-    att_flood_kernel(const float* __restrict__ stack, float* buf, float* __restrict__ out,
+    att_flood_kernel(const float* __restrict__ stacks, float* buf, float* __restrict__ outs,
                      Geom g, Schedule sc) {
   __shared__ float2 s_xy[2][kSide * kSide];
   __shared__ int s_src[2][kSide * kSide];
-  const int n = g.n;
-  // buf: (sy, sx) of both buffers first (8-byte aligned), then both src planes
+  const int n = g.B * g.n;     // cells of all lanes
+  // buf: (sy, sx) of both buffers first (8-byte aligned), then both src
+  // planes; each buffer holds the B lanes' cells one lane after another
   float2* xy = reinterpret_cast<float2*>(buf);
-  int* srcs = reinterpret_cast<int*>(buf + 4 * n);
+  int* srcs = reinterpret_cast<int*>(buf + 4 * (size_t)n);
   const State s0{xy, srcs}, s1{xy + n, srcs + n};
 
   // ---- long steps: pass k writes s0 (k even) or s1 (k odd) from the other
   if (sc.n_global > 0) {
     cg::grid_group grid = cg::this_grid();
     for (int k = 0; k < sc.n_global; ++k) {
-      global_pass(stack, (k & 1) ? s0 : s1, k == 0, (k & 1) ? s1 : s0, g, sc.steps[k]);
+      global_pass(stacks, (k & 1) ? s0 : s1, k == 0, (k & 1) ? s1 : s0, g, sc.steps[k]);
       grid.sync();
     }
   }
   const bool from_stack = sc.n_global == 0;
-  const State in = (sc.n_global & 1) ? s0 : s1;
+  const State in_all = (sc.n_global & 1) ? s0 : s1;
 
   // ---- short steps on tiles in shared memory (ping-pong), then the planes
   const int H = sc.halo;
   const int side = kTile + 2 * H;
   const int tx = threadIdx.x % kTx, ty = threadIdx.x / kTx;
-  for (int t = blockIdx.x; t < g.ntiles; t += gridDim.x) {
+  for (int tb = blockIdx.x; tb < g.B * g.ntiles; tb += gridDim.x) {
+    // lane ln's tile t: the lane's stack, state and output planes
+    const int ln = tb / g.ntiles, t = tb - ln * g.ntiles;
+    const float* stack = stacks + (size_t)ln * g.SR * g.cols;
+    const State in{in_all.xy + (size_t)ln * g.n, in_all.src + (size_t)ln * g.n};
+    float* out = outs + (size_t)ln * 8 * g.n;
     const int y0 = (t / g.tiles_x) * kTile, x0 = (t - (t / g.tiles_x) * g.tiles_x) * kTile;
     if (tx < side) {
       const int c = wrap(x0 - H + tx, g.cols);
@@ -295,16 +314,18 @@ extern "C" int rk_att_flood_max_blocks() {
   return sms * per_sm;
 }
 
+// stack: B lanes of [5*(rows+PAD), cols]; out: B lanes of [8, rows*cols];
 // steps: host array of n_global long steps then n_tile short steps (whose
-// sum is halo); state: 2 x 3 x rows*cols words of scratch; max_blocks: the
+// sum is halo); state: 2 x 3 x B*rows*cols words of scratch; max_blocks: the
 // co-resident limit (rk_att_flood_max_blocks).
-extern "C" int rk_att_flood(const float* stack, float* state, float* out, int rows, int cols,
-                            int pad, int search_range, float scale, const int* steps,
+extern "C" int rk_att_flood(const float* stack, float* state, float* out, int B, int rows,
+                            int cols, int pad, int search_range, float scale, const int* steps,
                             int n_global, int n_tile, int halo, int max_blocks,
                             void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (n_global < 0 || n_tile < 1 || n_global + n_tile > kMaxSteps || halo > kHaloMax ||
-      halo > pad || rows < 1 || cols < 1 || max_blocks < 1)
+      halo > pad || rows < 1 || cols < 1 || max_blocks < 1 || B < 1 ||
+      (long long)B * rows * cols * 3 >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   Schedule sc{n_global, n_tile, halo, {}};
   int sum = 0;
@@ -316,10 +337,10 @@ extern "C" int rk_att_flood(const float* stack, float* state, float* out, int ro
   if (sum != halo) return (int)cudaErrorInvalidValue;
   const int tiles_x = (cols + kTile - 1) / kTile;
   const int ntiles = ((rows + kTile - 1) / kTile) * tiles_x;
-  Geom g{rows, cols, pad, rows + pad, 5 * (rows + pad), rows * cols, tiles_x, ntiles,
+  Geom g{rows, cols, pad, rows + pad, 5 * (rows + pad), rows * cols, tiles_x, ntiles, B,
          (float)(search_range * search_range), scale};
-  int blocks = (g.n + kThreads - 1) / kThreads;
-  if (blocks < ntiles) blocks = ntiles;
+  int blocks = (B * g.n + kThreads - 1) / kThreads;
+  if (blocks < B * ntiles) blocks = B * ntiles;
   if (blocks > max_blocks) blocks = max_blocks;
   void* args[] = {&stack, &state, &out, &g, &sc};
   return (int)cudaLaunchCooperativeKernel((const void*)att_flood_kernel, dim3(blocks),

@@ -36,6 +36,12 @@
 // outputs bit for bit but cost more between events (PERF.md, PR 6).
 // The 3x3 product and divide of the seed are summed in a fixed order, as
 // the plain version writes them; --fmad=false keeps every product rounded.
+//
+// Lanes: blockIdx.y is the lane of B independent stages (what
+// torch.func.vmap of the step hands it, as jax.vmap of a pallas_call adds a
+// grid axis): each slot's pointer is lane 0's and a byte stride takes it to
+// lane b; the partials, klm and failed are the lane's own.  A lane's
+// arithmetic and its count's order are those of a launch of its own.
 
 #include <cuda_runtime.h>
 
@@ -225,35 +231,73 @@ __device__ __forceinline__ void gate_and_depth(const Params& p) {
   p.mkf_out[k] = mkf;
 }
 
+// Lane 0's pointers, each slot's byte stride from one lane to the next, and
+// the constants.
+struct Launch {
+  const char* ptr[N_SLOTS];
+  long long stride[N_SLOTS];
+  int K, min_matches;
+  float thr, q_abs2, pu2, fm, cx, cy;
+};
+
+// The Params of lane blockIdx.y (each slot's pointer computed in place: no
+// pointer array in local memory).
+__device__ __forceinline__ Params lane_params(const Launch& L) {
+  const long long b = blockIdx.y;
+#define RK_SLOT(T, s) ((T)(L.ptr[s] + b * L.stride[s]))
+  return Params{RK_SLOT(const float*, RHO), RK_SLOT(const float*, SR),
+                RK_SLOT(const float*, GRAD), RK_SLOT(const float*, GNORM),
+                RK_SLOT(const int*, ID_NEXT), RK_SLOT(const int*, ID_PREV),
+                RK_SLOT(const unsigned char*, VALID), RK_SLOT(const int*, MATCH_ID),
+                RK_SLOT(const float*, POS_IMG), RK_SLOT(const float*, MPOS),
+                RK_SLOT(const float*, MGRAD), RK_SLOT(const float*, MGN),
+                RK_SLOT(const float*, VEL), RK_SLOT(const float*, TUBE),
+                RK_SLOT(const int*, MATCHES), RK_SLOT(const int*, MKF),
+                RK_SLOT(const float*, R_TOT), RK_SLOT(const unsigned char*, FAIL_NAN),
+                RK_SLOT(float*, RHO_OUT), RK_SLOT(float*, SR_OUT), RK_SLOT(int*, MID_OUT),
+                RK_SLOT(int*, MATCHES_OUT), RK_SLOT(float*, MPOS_OUT),
+                RK_SLOT(float*, MGRAD_OUT), RK_SLOT(float*, MGN_OUT), RK_SLOT(int*, MKF_OUT),
+                RK_SLOT(int*, KLM), RK_SLOT(unsigned char*, FAILED), RK_SLOT(int*, PARTIAL),
+                L.K, L.min_matches, L.thr, L.q_abs2, L.pu2, L.fm, L.cx, L.cy};
+#undef RK_SLOT
+}
+
 // The two phases as two launches, the second ordered after the first by
 // the stream.
-__global__ void __launch_bounds__(kThreads) match_reg_ekf_count(Params p) { count_found(p); }
-__global__ void __launch_bounds__(kThreads) match_reg_ekf_gate(Params p) { gate_and_depth(p); }
+__global__ void __launch_bounds__(kThreads) match_reg_ekf_count(Launch L) {
+  count_found(lane_params(L));
+}
+__global__ void __launch_bounds__(kThreads) match_reg_ekf_gate(Launch L) {
+  gate_and_depth(lane_params(L));
+}
 
 }  // namespace
 
-// ptr: N_SLOTS device pointers in Slot order; partial holds one int per
-// block of kThreads keylines.
-extern "C" int rk_match_reg_ekf(void* const* ptr, int K, int min_matches, float thr,
-                                float q_abs2, float pu2, float fm, float cx, float cy,
-                                void* stream_ptr) {
+// ptr: N_SLOTS device pointers in Slot order, of lane 0 of B; stride: the
+// byte stride of each slot from one lane to the next; partial holds one int
+// per block of kThreads keylines, per lane.
+extern "C" int rk_match_reg_ekf(void* const* ptr, const long long* stride, int B, int K,
+                                int min_matches, float thr, float q_abs2, float pu2, float fm,
+                                float cx, float cy, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (K < 1) return (int)cudaErrorInvalidValue;
-  Params p{(const float*)ptr[RHO], (const float*)ptr[SR], (const float*)ptr[GRAD],
-           (const float*)ptr[GNORM], (const int*)ptr[ID_NEXT], (const int*)ptr[ID_PREV],
-           (const unsigned char*)ptr[VALID], (const int*)ptr[MATCH_ID],
-           (const float*)ptr[POS_IMG], (const float*)ptr[MPOS], (const float*)ptr[MGRAD],
-           (const float*)ptr[MGN], (const float*)ptr[VEL], (const float*)ptr[TUBE],
-           (const int*)ptr[MATCHES], (const int*)ptr[MKF], (const float*)ptr[R_TOT],
-           (const unsigned char*)ptr[FAIL_NAN], (float*)ptr[RHO_OUT], (float*)ptr[SR_OUT],
-           (int*)ptr[MID_OUT], (int*)ptr[MATCHES_OUT], (float*)ptr[MPOS_OUT],
-           (float*)ptr[MGRAD_OUT], (float*)ptr[MGN_OUT], (int*)ptr[MKF_OUT], (int*)ptr[KLM],
-           (unsigned char*)ptr[FAILED], (int*)ptr[PARTIAL], K, min_matches, thr, q_abs2, pu2,
-           fm, cx, cy};
-  const int blocks = (K + kThreads - 1) / kThreads;
+  if (K < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   for (int s = 0; s < N_SLOTS; ++s)
     if (ptr[s] == nullptr) return (int)cudaErrorInvalidValue;
-  match_reg_ekf_count<<<blocks, kThreads, 0, stream>>>(p);
-  match_reg_ekf_gate<<<blocks, kThreads, 0, stream>>>(p);
+  Launch L;
+  for (int s = 0; s < N_SLOTS; ++s) {
+    L.ptr[s] = (const char*)ptr[s];
+    L.stride[s] = stride[s];
+  }
+  L.K = K;
+  L.min_matches = min_matches;
+  L.thr = thr;
+  L.q_abs2 = q_abs2;
+  L.pu2 = pu2;
+  L.fm = fm;
+  L.cx = cx;
+  L.cy = cy;
+  const int blocks = (K + kThreads - 1) / kThreads;
+  match_reg_ekf_count<<<dim3(blocks, B), kThreads, 0, stream>>>(L);
+  match_reg_ekf_gate<<<dim3(blocks, B), kThreads, 0, stream>>>(L);
   return (int)cudaGetLastError();
 }

@@ -40,6 +40,11 @@
 // 0 * inf stays NaN as in the plain version).  The Pallas body reads JtJ's
 // bias block through 0/1 selector products, which equal the plain block
 // reads used here for finite values.
+//
+// Lanes: block b (of B, one warp each) solves lane b of B independent
+// problems, every input and output [B, ...] lane after lane (what
+// torch.func.vmap of the step hands it, as jax.vmap of a pallas_call adds a
+// grid axis); a lane's arithmetic is that of a launch of its own.
 
 #include <cuda_runtime.h>
 
@@ -330,6 +335,22 @@ estimate_bias_kernel(const float* __restrict__ a_s, const float* __restrict__ a_
                      float* __restrict__ P_out, float* __restrict__ Xvw_out) {
   __shared__ Smem s;
   const int lane = threadIdx.x;
+  {  // this block's problem
+    const size_t b = blockIdx.x;
+    a_s += 3 * b;
+    a_v += 3 * b;
+    x_p += 7 * b;
+    W_rest += 88 * b;
+    Rs += 9 * b;
+    Rv += 9 * b;
+    Wvw += 36 * b;
+    Xvw_in += 6 * b;
+    g_gravit += b;
+    K_out += b;
+    X_out += 7 * b;
+    P_out += 49 * b;
+    Xvw_out += 6 * b;
+  }
   // shared operands: W_rest, the zeros beside W0, the constant part of B
   for (int e = lane; e < 121; e += WARP) s.W[e] = e < 33 ? 0.0f : W_rest[e - 33];
   for (int e = lane; e < 88; e += WARP) s.B[e] = 0.0f;
@@ -434,9 +455,10 @@ extern "C" int rk_estimate_bias(const float* a_s, const float* a_v, const float*
                                 const float* W_rest, const float* Rs, const float* Rv,
                                 const float* Wvw, const float* Xvw, const float* g_gravit,
                                 int iters, float* K_out, float* X_out, float* P_out,
-                                float* Xvw_out, void* stream_ptr) {
+                                float* Xvw_out, int B, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  estimate_bias_kernel<<<1, WARP, 0, stream>>>(a_s, a_v, x_p, W_rest, Rs, Rv, Wvw, Xvw,
+  if (B < 1) return (int)cudaErrorInvalidValue;
+  estimate_bias_kernel<<<B, WARP, 0, stream>>>(a_s, a_v, x_p, W_rest, Rs, Rv, Wvw, Xvw,
                                                g_gravit, iters, K_out, X_out, P_out, Xvw_out);
   return (int)cudaGetLastError();
 }

@@ -29,6 +29,11 @@
 // tube_match_plain has it.  Only the winning lane gathers `matches` and the
 // keyframe id and writes the twelve planes; without a winner it writes
 // found 0, id -1, a zero payload and the prio.
+//
+// Lanes: blockIdx.y is the lane of B independent problems ([B, ...] planes,
+// lane after lane; what torch.func.vmap of the step hands it, as jax.vmap
+// of a pallas_call adds a grid axis); a lane's arithmetic is that of a
+// launch of its own.
 
 #include <climits>
 #include <cmath>
@@ -45,11 +50,17 @@ struct Params {
 };
 
 __global__ void __launch_bounds__(kThreads)
-    tube_match_kernel(const float* __restrict__ kl, const float* __restrict__ att,
-                      const float* __restrict__ dyn, const float* __restrict__ M2, Params p,
-                      float* __restrict__ out) {
+    tube_match_kernel(const float* __restrict__ kls, const float* __restrict__ atts,
+                      const float* __restrict__ dyns, const float* __restrict__ M2s, Params p,
+                      float* __restrict__ outs) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int K = p.K, N = p.N;
+  const size_t ln = blockIdx.y;
+  const float* kl = kls + ln * 13 * K;
+  const float* att = atts + ln * 8 * N;
+  const float* dyn = dyns + ln * 4 * K;
+  const float* M2 = M2s + ln * 4;
+  float* out = outs + ln * 12 * K;
   // groups past the last keyline repeat its work and write nothing: every
   // lane of a warp takes part in the shuffles
   const bool live = (t >> p.log2G) < K;
@@ -140,12 +151,14 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// B lanes: kl [B, 13, K], att [B, 8, N], dyn [B, 4, K], M2 [B, 2, 2] ->
+// out [B, 12, K].
 extern "C" int rk_tube_match(const float* kl, const float* att, const float* dyn,
-                             const float* M2, int K, int N, int P, int H, int W, int fscale,
-                             float pum, float cang_min, float norm_thr, float* out,
+                             const float* M2, int B, int K, int N, int P, int H, int W,
+                             int fscale, float pum, float cang_min, float norm_thr, float* out,
                              void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (K < 1 || P < 2) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > 65535 || K < 1 || P < 2) return (int)cudaErrorInvalidValue;
   int log2G = 0;
   while ((1 << log2G) < P && log2G < 5) ++log2G;
   const int G = 1 << log2G;
@@ -153,6 +166,6 @@ extern "C" int rk_tube_match(const float* kl, const float* att, const float* dyn
            pum, cang_min, norm_thr};
   const long long threads = (long long)K * G;
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  tube_match_kernel<<<blocks, kThreads, 0, stream>>>(kl, att, dyn, M2, p, out);
+  tube_match_kernel<<<dim3(blocks, B), kThreads, 0, stream>>>(kl, att, dyn, M2, p, out);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from rebvio_tpu_torch.ops import _build, kernels
+from rebvio_tpu_torch.ops import kernels
 
 
 def invert3(m: torch.Tensor) -> torch.Tensor:
@@ -32,19 +32,9 @@ def chol_inverse(m: torch.Tensor) -> torch.Tensor:
     recurrence is one launch of csrc/chol_inverse.cu (one thread per matrix,
     n <= 8) with no host round trip; on a CPU tensor it is the plain version
     below.  Both run the same float32 operations in the same order."""
-    if m.device.type == "cpu":
+    if not kernels._on_cuda(m):
         return chol_inverse_plain(m)
-    n = m.shape[-1]
-    if m.dtype != torch.float32 or m.ndim < 2 or m.shape[-2] != n or not 1 <= n <= 8:
-        raise ValueError(f"chol_inverse: expected float32 [..., n, n] with n <= 8, got "
-                         f"{m.dtype} {tuple(m.shape)}")
-    a = m.detach().contiguous()
-    out = torch.empty_like(a)
-    err = _build.load().rk_chol_inverse(kernels._ptr(a), kernels._ptr(out), n,
-                                        a.numel() // (n * n), kernels._stream(a))
-    kernels._raise_on(err, "chol_inverse")
-    kernels.LAUNCHES["chol_inverse"] += 1
-    return out
+    return torch.ops.rebvio.chol_inverse(m)
 
 
 def chol_inverse_plain(m: torch.Tensor) -> torch.Tensor:

@@ -32,14 +32,16 @@ BUILD_INFO = {"seconds": None, "path": None, "ptxas": ""}
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "rk_att_flood": [P, P, P, I, I, I, I, F, P, I, I, I, I, P],
+    "rk_att_flood": [P, P, P, I, I, I, I, I, F, P, I, I, I, I, P],
     "rk_att_flood_max_blocks": [],
-    "rk_minimize_vel": [P] * 8 + [I] * 5 + [F] * 6 + [I] + [P] * 4 + [P],
+    "rk_minimize_vel": [P] * 8 + [I] * 6 + [F] * 6 + [I] + [P] * 4 + [I, P],
     "rk_minimize_vel_blocks": [I],
     "rk_minimize_vel_max_blocks": [],
-    "rk_tube_match": [P] * 4 + [I] * 6 + [F] * 3 + [P, P],
-    "rk_match_reg_ekf": [P, I, I] + [F] * 6 + [P],
-    "rk_estimate_bias": [P] * 9 + [I] + [P] * 4 + [P],
+    "rk_minimize_vel_lanes_max": [],
+    "rk_minimize_vel_items_max": [],
+    "rk_tube_match": [P] * 4 + [I] * 7 + [F] * 3 + [P, P],
+    "rk_match_reg_ekf": [P, P, I, I, I] + [F] * 6 + [P],
+    "rk_estimate_bias": [P] * 9 + [I] + [P] * 4 + [I, P],
     "rk_seed_winner": [P, P, I, F, I, I, P, P],
     "rk_seed_stack": [P, P, P, F, I, I, I, P, P],
     "rk_nn_cluster_occupancy": [I] * 5,

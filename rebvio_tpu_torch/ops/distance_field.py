@@ -100,14 +100,14 @@ def seed_stack_dense(kl_id_img, sub_x, sub_y, gx, gy, threshold,
     gathered = torch.stack([py, px, kl_id_img.to(torch.float32), gx, gy]).reshape(5, H * W)[
         :, wpix.clamp(min=0)]
 
-    # the sentinels (BIG, BIG, -1, 0, 0) filled on the device, not copied from the host
-    sentinel = torch.full((5, 1), BIG, dtype=torch.float32, device=dev)
-    sentinel[2] = -1.0
-    sentinel[3:] = 0.0
+    # the sentinels (BIG, BIG, -1, 0, 0) made on the device, not copied from
+    # the host; the stack assembled out of place (a write into a fresh buffer
+    # would not batch under torch.func.vmap)
+    plane = torch.arange(5, device=dev)[:, None]
+    sentinel = torch.where(plane == 2, -1.0, torch.where(plane >= 3, 0.0, BIG))
     PAD = flood_pad(sr)
-    stack = torch.empty((5, frows + PAD, fcols), dtype=torch.float32, device=dev)
-    stack[:, :frows] = torch.where(has, gathered, sentinel).reshape(5, frows, fcols)
-    stack[:, frows:] = sentinel[:, :, None]
+    stack = torch.cat([torch.where(has, gathered, sentinel).reshape(5, frows, fcols),
+                       sentinel[:, :, None].expand(5, PAD, fcols)], dim=1)
     return stack.reshape(5 * (frows + PAD), fcols)
 
 

@@ -133,7 +133,7 @@ def id_image(idx: torch.Tensor, valid: torch.Tensor, H: int, W: int) -> torch.Te
     slot = torch.arange(kmax, dtype=torch.int64, device=idx.device)
     tgt = torch.where(valid, idx, H * W + slot)
     out = torch.full((H * W + kmax,), -1, dtype=i32, device=idx.device)
-    out.scatter_(0, tgt, slot.to(i32))          # unique targets
+    out = out.scatter(0, tgt, slot.to(i32))     # unique targets
     return out[:H * W].reshape(H, W)
 
 

@@ -20,6 +20,16 @@ outputs); a CUDA tensor launches the kernel or raises.  ``LAUNCHES[name]``
 counts the wrapper's kernel launches (a multi-kernel call counts once).
 ``chol_inverse`` (csrc/chol_inverse.cu, launched by geometry/linalg.py)
 replaces no TPU kernel and is counted here too.
+
+On the card the step's kernels (att_flood, minimize_vel / try_vel,
+tube_match, match_reg_ekf, estimate_bias, chol_inverse) are reached through
+PyTorch operators (``torch.ops.rebvio.*``) with a vmap rule: under
+``torch.func.vmap`` (parallel/batch.py) each launches ONCE over all B lanes,
+its inputs [B, ...], as ``jax.vmap`` of a ``pallas_call`` adds a grid axis.
+Each kernel takes a lane count and keeps its arithmetic per lane, so a lane
+gives the bits of an unbatched launch; the unbatched call is the launch of
+one lane.  The rule never loops over lanes and raises on CPU tensors (the
+plain versions, which run under vmap as they are, serve the CPU).
 """
 
 from __future__ import annotations
@@ -27,9 +37,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
+from torch.library import custom_op
 
 from rebvio_tpu_torch.ops import _build
 
@@ -72,6 +83,12 @@ def _full(like: torch.Tensor, value: float) -> torch.Tensor:
     device (PyTorch's CUDA division by a Python scalar multiplies by the
     rounded reciprocal, which the kernels do not)."""
     return torch.full_like(like, value)
+
+
+def _floats(params) -> list:
+    """A NamedTuple of kernel constants as the operators' ``float[]`` (every
+    int here is exact in a double)."""
+    return [float(x) for x in params]
 
 
 def _raise_on(err: int, name: str):
@@ -142,15 +159,23 @@ def att_flood(stack: torch.Tensor, search_range: int, rows: int, cols: int,
     ``[2, 3, rows*cols]`` scratch; the stack is only read)."""
     if not _on_cuda(stack):
         return att_flood_plain(stack, search_range, rows, cols, scale)
+    return torch.ops.rebvio.att_flood(stack, search_range, rows, cols, scale)
+
+
+def _launch_att_flood(stack: torch.Tensor, search_range: int, rows: int, cols: int,
+                      scale: int) -> torch.Tensor:
+    """One launch of csrc/flood.cu over the B lanes of ``stack`` [B,
+    5*(rows+PAD), cols]; returns [B, 8, rows*cols]."""
+    B = stack.shape[0]
     pad, Rp = flood_layout(rows, search_range)
-    _check(stack, f32, (5 * Rp, cols), "att_flood stack")
+    _check(stack, f32, (B, 5 * Rp, cols), "att_flood stack")
     steps, n_long, n_short, halo = _flood_args(search_range, pad)
     lib = _build.load()
     n = rows * cols
-    state = torch.empty((2, 3, n), dtype=f32, device=stack.device)
-    out = torch.empty((8, n), dtype=f32, device=stack.device)
-    err = lib.rk_att_flood(_ptr(stack), _ptr(state), _ptr(out), rows, cols, pad, search_range,
-                           float(scale), steps, n_long, n_short, halo,
+    state = torch.empty((2, 3, B * n), dtype=f32, device=stack.device)
+    out = torch.empty((B, 8, n), dtype=f32, device=stack.device)
+    err = lib.rk_att_flood(_ptr(stack), _ptr(state), _ptr(out), B, rows, cols, pad,
+                           search_range, float(scale), steps, n_long, n_short, halo,
                            _coop_limit(lib, "rk_att_flood", stack.device), _stream(stack))
     _raise_on(err, "att_flood")
     LAUNCHES["att_flood"] += 1
@@ -291,8 +316,8 @@ def seed_stack_plain(pos, grad, use, search_range: int, rows: int, cols: int, sc
         torch.where(has, winner.to(f32), -1.0),
         torch.where(has, grad[w, 0], 0.0), torch.where(has, grad[w, 1], 0.0)])
     fill = torch.tensor([BIG, BIG, -1.0, 0.0, 0.0], dtype=f32, device=pos.device)
-    stack = fill[:, None, None].expand(5, Rp, fcols).contiguous()
-    stack[:, :frows, :] = planes.reshape(5, frows, fcols)
+    stack = torch.cat([planes.reshape(5, frows, fcols),
+                       fill[:, None, None].expand(5, Rp - frows, fcols)], dim=1)
     return stack.reshape(5 * Rp, fcols)
 
 
@@ -443,37 +468,43 @@ class TryVelGeom(NamedTuple):
 def _launch_minimize_vel(name, pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att,
                          g: TryVelGeom, iterations: int):
     """Checks, allocates once and launches csrc/try_vel.cu's cooperative
-    kernel: 1 + ``iterations`` passes from ``residuals`` (None: zeros).
-    Returns (out [16 + 3*iterations], residuals [K], match_id_forward [K])."""
-    K = rho.shape[0]
-    N = att.shape[1]
-    for t, shape, what in ((pos_img, (K, 2), "pos_img"), (rho, (K,), "rho"),
-                           (sigma_rho, (K,), "sigma_rho"), (grad, (K, 2), "grad"),
-                           (use_f, (K,), "use_f"), (residuals, (K,), "residuals"),
-                           (vel, (3,), "vel"), (att, (8, N), "att")):
+    kernel over the B lanes of its [B, ...] inputs: 1 + ``iterations`` passes
+    from ``residuals`` (None: zeros).  Returns (out [B, 16 + 3*iterations],
+    residuals [B, K], match_id_forward [B, K])."""
+    B, K = rho.shape
+    N = att.shape[-1]
+    for t, shape, what in ((pos_img, (B, K, 2), "pos_img"), (rho, (B, K), "rho"),
+                           (sigma_rho, (B, K), "sigma_rho"), (grad, (B, K, 2), "grad"),
+                           (use_f, (B, K), "use_f"), (residuals, (B, K), "residuals"),
+                           (vel, (B, 3), "vel"), (att, (B, 8, N), "att")):
         if t is not None:
             _check(t, f32, shape, f"{name} {what}")
     if iterations < 0 or K < 1:
         raise ValueError(f"{name}: needs iterations >= 0 and at least one keyline")
     lib = _build.load()
     dev = rho.device
-    nblk = lib.rk_minimize_vel_blocks(K)
+    items = B * lib.rk_minimize_vel_blocks(K)
     limit = _coop_limit(lib, "rk_minimize_vel", dev)
-    if nblk > limit:
-        raise ValueError(f"{name}: {K} keylines need {nblk} blocks, but only {limit} can be "
-                         f"co-resident for the grid sync")
+    per_block = -(-items // min(items, limit))
+    if B > lib.rk_minimize_vel_lanes_max() or per_block > lib.rk_minimize_vel_items_max():
+        raise ValueError(f"{name}: {B} lanes of {K} keylines are {items} blocks of work, "
+                         f"{per_block} a block over the {limit} that can be co-resident for "
+                         f"the grid sync; the kernel takes at most "
+                         f"{lib.rk_minimize_vel_items_max()} a block and "
+                         f"{lib.rk_minimize_vel_lanes_max()} lanes")
     n_out = 16 + 3 * iterations
-    buf = torch.empty((n_out + 2 * nblk * 11,), dtype=f32, device=dev)
-    res = torch.empty((K,), dtype=f32, device=dev)
-    mif = torch.empty((K,), dtype=i32, device=dev)
+    out = torch.empty((B, n_out), dtype=f32, device=dev)
+    partials = torch.empty((2 * items * 11,), dtype=f32, device=dev)
+    res = torch.empty((B, K), dtype=f32, device=dev)
+    mif = torch.empty((B, K), dtype=i32, device=dev)
     err = lib.rk_minimize_vel(
         _ptr(pos_img), _ptr(rho), _ptr(sigma_rho), _ptr(grad), _ptr(use_f),
-        _ptr(residuals) if residuals is not None else None, _ptr(vel), _ptr(att), K, N, g.H,
-        g.W, g.field_scale, g.fm, g.cx, g.cy, g.R, g.rw, g.mthr, iterations,
-        _ptr(buf[n_out:]), _ptr(buf), _ptr(res), _ptr(mif), _stream(rho))
+        _ptr(residuals) if residuals is not None else None, _ptr(vel), _ptr(att), B, K, N,
+        g.H, g.W, g.field_scale, g.fm, g.cx, g.cy, g.R, g.rw, g.mthr, iterations,
+        _ptr(partials), _ptr(out), _ptr(res), _ptr(mif), limit, _stream(rho))
     _raise_on(err, name)
     LAUNCHES[name] += 1
-    return buf[:n_out], res, mif
+    return out, res, mif
 
 
 def try_vel(pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att, g: TryVelGeom):
@@ -483,7 +514,7 @@ def try_vel(pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att, g: TryVel
     ins = (pos_img, rho, sigma_rho, grad, use_f, residuals, vel, att)
     if not _on_cuda(*ins):
         return try_vel_plain(*ins, g)
-    out, res, mif = _launch_minimize_vel("try_vel", *ins, g, 0)
+    out, res, mif = torch.ops.rebvio.minimize_vel("try_vel", *ins, _floats(g), 0)
     return out[15], out[3:12].view(3, 3), out[12:15], res, mif
 
 
@@ -545,8 +576,9 @@ def minimize_vel(pos_img, rho, sigma_rho, grad, use_f, vel0, att, g: TryVelGeom,
     ins = (pos_img, rho, sigma_rho, grad, use_f, vel0, att)
     if not _on_cuda(*ins):
         return minimize_vel_plain(*ins, g, iterations, debug)
-    out, res, mif = _launch_minimize_vel("minimize_vel", pos_img, rho, sigma_rho, grad, use_f,
-                                         None, vel0, att, g, int(iterations))
+    out, res, mif = torch.ops.rebvio.minimize_vel("minimize_vel", pos_img, rho, sigma_rho,
+                                                  grad, use_f, None, vel0, att, _floats(g),
+                                                  int(iterations))
     ret = (out[0:3], out[3:12].view(3, 3), out[12:15], out[15], res, mif)
     if debug:
         it = int(iterations)
@@ -626,17 +658,23 @@ def tube_match(kl, att, dyn, M2, g: TubeGeom) -> torch.Tensor:
     Returns [12, K] (TUBE_OUT)."""
     if not _on_cuda(kl, att, dyn, M2):
         return tube_match_plain(kl, att, dyn, M2, g)
-    K = kl.shape[1]
-    N = att.shape[1]
-    _check(kl, f32, (len(TUBE_PLANES), K), "tube_match kl")
-    _check(att, f32, (8, N), "tube_match att")
-    _check(dyn, f32, (4, K), "tube_match dyn")
-    _check(M2, f32, (2, 2), "tube_match M2")
+    return torch.ops.rebvio.tube_match(kl, att, dyn, M2, _floats(g))
+
+
+def _launch_tube_match(kl, att, dyn, M2, g: TubeGeom) -> torch.Tensor:
+    """One launch of csrc/tube_match.cu over the B lanes of kl [B, 13, K],
+    att [B, 8, N], dyn [B, 4, K], M2 [B, 2, 2]; returns [B, 12, K]."""
+    B, _, K = kl.shape
+    N = att.shape[-1]
+    _check(kl, f32, (B, len(TUBE_PLANES), K), "tube_match kl")
+    _check(att, f32, (B, 8, N), "tube_match att")
+    _check(dyn, f32, (B, 4, K), "tube_match dyn")
+    _check(M2, f32, (B, 2, 2), "tube_match M2")
     if g.P < 2:
         raise ValueError("tube_match needs at least 2 probes")
     lib = _build.load()
-    out = torch.empty((len(TUBE_OUT), K), dtype=f32, device=kl.device)
-    err = lib.rk_tube_match(_ptr(kl), _ptr(att), _ptr(dyn), _ptr(M2), K, N, g.P, g.H, g.W,
+    out = torch.empty((B, len(TUBE_OUT), K), dtype=f32, device=kl.device)
+    err = lib.rk_tube_match(_ptr(kl), _ptr(att), _ptr(dyn), _ptr(M2), B, K, N, g.P, g.H, g.W,
                             g.field_scale, g.pum, g.cang_min, g.norm_thr, _ptr(out),
                             _stream(kl))
     _raise_on(err, "tube_match")
@@ -792,23 +830,36 @@ def match_reg_ekf(tube_out, rho, sigma_rho, grad, grad_norm, id_next, id_prev, v
                                    match_pos_img, match_grad, match_grad_norm, vel, R_tot,
                                    fail_nan, p)
     K = rho.shape[0]
-    _check_mre(ins, _mre_specs(K))
-    dev = rho.device
-    fo = torch.empty((7 * K,), dtype=f32, device=dev)
-    io = torch.empty((3 * K + 1 + -(-K // _MRE_THREADS),), dtype=i32, device=dev)
-    failed = torch.empty((), dtype=torch.bool, device=dev)
+    fo, io, failed = torch.ops.rebvio.match_reg_ekf(list(ins), _floats(p))
     rho_o, sr_o, mgn_o = fo[:K], fo[K:2 * K], fo[2 * K:3 * K]
     mpos_o, mgrad_o = fo[3 * K:5 * K].view(K, 2), fo[5 * K:].view(K, 2)
     mid_o, matches_o, mkf_o, klm = io[:K], io[K:2 * K], io[2 * K:3 * K], io[3 * K]
-    outs = (rho_o, sr_o, mid_o, matches_o, mpos_o, mgrad_o, mgn_o, mkf_o, klm, failed,
-            io[3 * K + 1:])
-    ptrs = [t.data_ptr() for t in ins + outs]
-    err = _build.load().rk_match_reg_ekf((ctypes.c_void_p * _MRE_SLOTS)(*ptrs), K,
-                                         p.min_matches, p.threshold, p.q_abs2, p.pu2, p.fm,
-                                         p.cx, p.cy, _stream(rho))
+    return rho_o, sr_o, mid_o, matches_o, mpos_o, mgrad_o, mgn_o, mkf_o, klm, failed
+
+
+def _launch_match_reg_ekf(ins, p: MatchRegEkfParams):
+    """One call of csrc/reg_ekf.cu (two launches) over the B lanes of its
+    [B, ...] inputs (_MRE_NAMES).  Returns (fo [B, 7K] float32: rho,
+    sigma_rho, match_grad_norm, match_pos_img, match_grad; io [B, 3K + 1 +
+    blocks] int32: match_id, matches, keyframe id, klm, then the count's
+    partials; failed [B] bool)."""
+    B, K = ins[0].shape
+    _check_mre(ins, tuple((dt, (B,) + shape) for dt, shape in _mre_specs(K)))
+    dev = ins[0].device
+    fo = torch.empty((B, 7 * K), dtype=f32, device=dev)
+    io = torch.empty((B, 3 * K + 1 + -(-K // _MRE_THREADS)), dtype=i32, device=dev)
+    failed = torch.empty((B,), dtype=torch.bool, device=dev)
+    outs = (fo[:, :K], fo[:, K:2 * K], io[:, :K], io[:, K:2 * K], fo[:, 3 * K:5 * K],
+            fo[:, 5 * K:], fo[:, 2 * K:3 * K], io[:, 2 * K:3 * K], io[:, 3 * K], failed,
+            io[:, 3 * K + 1:])
+    ts = tuple(ins) + outs
+    ptrs = (ctypes.c_void_p * _MRE_SLOTS)(*[t.data_ptr() for t in ts])
+    strides = (ctypes.c_longlong * _MRE_SLOTS)(*[t.stride(0) * t.element_size() for t in ts])
+    err = _build.load().rk_match_reg_ekf(ptrs, strides, B, K, p.min_matches, p.threshold,
+                                         p.q_abs2, p.pu2, p.fm, p.cx, p.cy, _stream(ins[0]))
     _raise_on(err, "match_reg_ekf")
     LAUNCHES["reg_ekf"] += 1
-    return rho_o, sr_o, mid_o, matches_o, mpos_o, mgrad_o, mgn_o, mkf_o, klm, failed
+    return fo, io, failed
 
 
 def match_tail_plain(tube_out, rho, sigma_rho, match_id, matches, match_pos_img, match_grad,
@@ -939,19 +990,27 @@ def estimate_bias(a_s, a_v, x_p, W_rest, Rs, Rv, Wvw, Xvw, g_gravit, iters: int)
     ins = (a_s, a_v, x_p, W_rest, Rs, Rv, Wvw, Xvw, g_gravit)
     if not _on_cuda(*ins):
         return estimate_bias_plain(*ins, iters)
-    for t, shape, name in ((a_s, (3,), "a_s"), (a_v, (3,), "a_v"), (x_p, (7,), "x_p"),
-                           (W_rest, (8, 11), "W_rest"), (Rs, (3, 3), "Rs"),
-                           (Rv, (3, 3), "Rv"), (Wvw, (6, 6), "Wvw"), (Xvw, (6,), "Xvw"),
-                           (g_gravit, (), "g_gravit")):
-        _check(t, f32, shape, "estimate_bias " + name)
+    return torch.ops.rebvio.estimate_bias(*ins, int(iters))
+
+
+_SAB_SHAPES = (("a_s", (3,)), ("a_v", (3,)), ("x_p", (7,)), ("W_rest", (8, 11)),
+               ("Rs", (3, 3)), ("Rv", (3, 3)), ("Wvw", (6, 6)), ("Xvw", (6,)), ("g_gravit", ()))
+
+
+def _launch_estimate_bias(ins, iters: int):
+    """One launch of csrc/sab.cu over the B lanes of its [B, ...] inputs
+    (_SAB_SHAPES).  Returns (K [B], X [B, 7], P [B, 7, 7], Xvw [B, 6])."""
+    B = ins[0].shape[0]
+    for t, (name, shape) in zip(ins, _SAB_SHAPES):
+        _check(t, f32, (B,) + shape, "estimate_bias " + name)
     lib = _build.load()
-    dev = a_s.device
-    K = torch.empty((), dtype=f32, device=dev)
-    X = torch.empty((7,), dtype=f32, device=dev)
-    P = torch.empty((7, 7), dtype=f32, device=dev)
-    Xc = torch.empty((6,), dtype=f32, device=dev)
+    dev = ins[0].device
+    K = torch.empty((B,), dtype=f32, device=dev)
+    X = torch.empty((B, 7), dtype=f32, device=dev)
+    P = torch.empty((B, 7, 7), dtype=f32, device=dev)
+    Xc = torch.empty((B, 6), dtype=f32, device=dev)
     err = lib.rk_estimate_bias(*(_ptr(t) for t in ins), int(iters), _ptr(K), _ptr(X),
-                               _ptr(P), _ptr(Xc), _stream(a_s))
+                               _ptr(P), _ptr(Xc), B, _stream(ins[0]))
     _raise_on(err, "estimate_bias")
     LAUNCHES["estimate_bias"] += 1
     return K, X, P, Xc
@@ -1038,8 +1097,140 @@ def estimate_bias_plain(a_s, a_v, x_p, W_rest, Rs, Rv, Wvw, Xvw, g_gravit, iters
     k = torch.where((k < 0) | ~torch.isfinite(k), 0.0, k)
     # re-fuse the rigid transform with the bias information (core.cpp:394-405)
     WVBias = JtJ[4:7, 4:7]
-    M6 = Wvw.clone()
-    M6[3:, 3:] = WVBias + Wvw[3:, 3:]
+    M6 = torch.cat([Wvw[:3], torch.cat([Wvw[3:, :3], WVBias + Wvw[3:, 3:]], dim=1)])
     wc = Xvw[3:6] - Xc[4:7]
     rhs = Wvw @ Xvw + torch.cat([torch.zeros(3, **z), WVBias @ wc])
     return k, Xc, P, gj_inverse_mosaic(M6) @ rhs
+
+
+# --------------------------------------------------------------------------
+# The step's kernels as PyTorch operators.  The unbatched call launches one
+# lane; the vmap rule launches once over every lane of a torch.func.vmap
+# (parallel/batch.py), with the lane axis first and contiguous.
+
+
+def _lanes(info, in_dims, args):
+    """``args`` as [B, ...] lanes: a vmapped tensor with its lane axis moved
+    first, an unbatched one expanded to B lanes, both contiguous; None and
+    non-tensors pass.  Raises on a tensor that is not on the card: the
+    rule never falls back to a plain version or a loop over lanes."""
+    out = []
+    for a, d in zip(args, in_dims):
+        if torch.is_tensor(a):
+            if not _on_cuda(a):
+                raise ValueError("rebvio kernels under vmap take CUDA tensors; CPU tensors "
+                                 "go to the plain versions")
+            a = a.movedim(d, 0) if d is not None else a.expand(info.batch_size, *a.shape)
+            a = a.contiguous()
+        out.append(a)
+    return out
+
+
+@custom_op("rebvio::att_flood", mutates_args=())
+def _att_flood_op(stack: torch.Tensor, search_range: int, rows: int, cols: int,
+                  scale: int) -> torch.Tensor:
+    return _launch_att_flood(stack.contiguous()[None], search_range, rows, cols, scale)[0]
+
+
+@_att_flood_op.register_vmap
+def _att_flood_lanes(info, in_dims, stack, search_range, rows, cols, scale):
+    (stack,) = _lanes(info, in_dims[:1], (stack,))
+    return _launch_att_flood(stack, search_range, rows, cols, scale), 0
+
+
+def _try_vel_geom(g: List[float]) -> TryVelGeom:
+    return TryVelGeom(int(g[0]), int(g[1]), int(g[2]), *g[3:])
+
+
+@custom_op("rebvio::minimize_vel", mutates_args=())
+def _minimize_vel_op(name: str, pos_img: torch.Tensor, rho: torch.Tensor,
+                     sigma_rho: torch.Tensor, grad: torch.Tensor, use_f: torch.Tensor,
+                     residuals: Optional[torch.Tensor], vel: torch.Tensor, att: torch.Tensor,
+                     g: List[float], iterations: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    ins = [None if t is None else t[None] for t in (pos_img, rho, sigma_rho, grad, use_f,
+                                                    residuals, vel, att)]
+    out, res, mif = _launch_minimize_vel(name, *ins, _try_vel_geom(g), iterations)
+    return out[0], res[0], mif[0]
+
+
+@_minimize_vel_op.register_vmap
+def _minimize_vel_lanes(info, in_dims, name, *args):
+    ins = _lanes(info, in_dims[1:9], args[:8])
+    g, iterations = args[8:]
+    return _launch_minimize_vel(name, *ins, _try_vel_geom(g), iterations), (0, 0, 0)
+
+
+def _tube_geom(g: List[float]) -> TubeGeom:
+    return TubeGeom(int(g[0]), int(g[1]), int(g[2]), int(g[3]), *g[4:])
+
+
+@custom_op("rebvio::tube_match", mutates_args=())
+def _tube_match_op(kl: torch.Tensor, att: torch.Tensor, dyn: torch.Tensor, M2: torch.Tensor,
+                   g: List[float]) -> torch.Tensor:
+    ins = [t.contiguous()[None] for t in (kl, att, dyn, M2)]
+    return _launch_tube_match(*ins, _tube_geom(g))[0]
+
+
+@_tube_match_op.register_vmap
+def _tube_match_lanes(info, in_dims, kl, att, dyn, M2, g):
+    ins = _lanes(info, in_dims[:4], (kl, att, dyn, M2))
+    return _launch_tube_match(*ins, _tube_geom(g)), 0
+
+
+def _mre_params(p: List[float]) -> MatchRegEkfParams:
+    return MatchRegEkfParams(*p[:6], min_matches=int(p[6]))
+
+
+@custom_op("rebvio::match_reg_ekf", mutates_args=())
+def _match_reg_ekf_op(ins: List[torch.Tensor], p: List[float]
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    fo, io, failed = _launch_match_reg_ekf([t[None] for t in ins], _mre_params(p))
+    return fo[0], io[0], failed[0]
+
+
+@_match_reg_ekf_op.register_vmap
+def _match_reg_ekf_lanes(info, in_dims, ins, p):
+    return _launch_match_reg_ekf(_lanes(info, in_dims[0], ins), _mre_params(p)), (0, 0, 0)
+
+
+@custom_op("rebvio::estimate_bias", mutates_args=())
+def _estimate_bias_op(a_s: torch.Tensor, a_v: torch.Tensor, x_p: torch.Tensor,
+                      W_rest: torch.Tensor, Rs: torch.Tensor, Rv: torch.Tensor,
+                      Wvw: torch.Tensor, Xvw: torch.Tensor, g_gravit: torch.Tensor, iters: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    ins = [t.contiguous()[None] for t in (a_s, a_v, x_p, W_rest, Rs, Rv, Wvw, Xvw, g_gravit)]
+    return tuple(t[0] for t in _launch_estimate_bias(ins, iters))
+
+
+@_estimate_bias_op.register_vmap
+def _estimate_bias_lanes(info, in_dims, *args):
+    ins = _lanes(info, in_dims[:9], args[:9])
+    return _launch_estimate_bias(ins, args[9]), (0, 0, 0, 0)
+
+
+@custom_op("rebvio::chol_inverse", mutates_args=())
+def _chol_inverse_op(m: torch.Tensor) -> torch.Tensor:
+    return _launch_chol_inverse(m)
+
+
+@_chol_inverse_op.register_vmap
+def _chol_inverse_lanes(info, in_dims, m):
+    (m,) = _lanes(info, in_dims, (m,))
+    return _launch_chol_inverse(m), 0
+
+
+def _launch_chol_inverse(m: torch.Tensor) -> torch.Tensor:
+    """One launch of csrc/chol_inverse.cu over the ``[..., n, n]`` batch
+    (one thread a matrix): the lanes of a vmap are more leading dims."""
+    n = m.shape[-1]
+    if m.dtype != f32 or m.ndim < 2 or m.shape[-2] != n or not 1 <= n <= 8:
+        raise ValueError(f"chol_inverse: expected float32 [..., n, n] with n <= 8, got "
+                         f"{m.dtype} {tuple(m.shape)}")
+    a = m.detach().contiguous()
+    out = torch.empty_like(a)
+    err = _build.load().rk_chol_inverse(_ptr(a), _ptr(out), n, a.numel() // (n * n),
+                                        _stream(a))
+    _raise_on(err, "chol_inverse")
+    LAUNCHES["chol_inverse"] += 1
+    return out

@@ -68,8 +68,7 @@ def forward_match(old: T.EdgeMap, new: T.EdgeMap) -> Tuple[T.EdgeMap, torch.Tens
     cand = old.valid & (old.match_id_forward >= 0)
     tgt = torch.where(cand, old.match_id_forward, kmax).to(torch.int64)
     order = torch.argsort(torch.where(cand, old.rho, -_F32_MAX), stable=True)
-    rank_of = torch.empty_like(order)
-    rank_of[order] = torch.arange(kmax, device=dev)
+    rank_of = torch.empty_like(order).scatter(0, order, torch.arange(kmax, device=dev))
     win_key = torch.zeros((kmax + 1,), dtype=torch.int64, device=dev)
     win_key = win_key.scatter_reduce(0, tgt, torch.where(cand, rank_of + 1, 0),
                                      reduce="amax")[:kmax]

@@ -127,6 +127,15 @@ class EstimateBiasOut(NamedTuple):
     Xvw: torch.Tensor     # [6] bias-refused rigid transform correction
 
 
+def _blocks_7x7(a: torch.Tensor, M: torch.Tensor, N: torch.Tensor) -> torch.Tensor:
+    """The 7x7 block diagonal diag(a, M, N) of a [] and two [3,3], zeros
+    elsewhere, assembled out of place (so that it batches under vmap)."""
+    z3 = torch.zeros((3, 3), dtype=M.dtype, device=M.device)
+    zc = torch.zeros((3, 1), dtype=M.dtype, device=M.device)
+    row0 = torch.cat([a.reshape(1), torch.zeros(6, dtype=M.dtype, device=M.device)])[None]
+    return torch.cat([row0, torch.cat([zc, M, z3], dim=1), torch.cat([zc, z3, N], dim=1)])
+
+
 def estimate_bias(a_s, a_v, kP, Rot, X, P, Qg, Qrot, Qbias, QKp, Rg, Rs, Rv, Wvw, Xvw,
                   g_gravit, iters: int = 20, kernel: bool = True) -> EstimateBiasOut:
     """7-state KF predict + SAB Gauss-Newton update + re-fusion of the rigid
@@ -134,16 +143,10 @@ def estimate_bias(a_s, a_v, kP, Rot, X, P, Qg, Qrot, Qbias, QKp, Rg, Rs, Rv, Wvw
     (the default) solves with K3; ``kernel=False`` with the XLA form."""
     z = dict(dtype=f32, device=X.device)
     # --- predict (core.cpp:355-373) ---
-    F = torch.zeros((7, 7), **z)
-    F[0, 0] = kP
-    F[1:4, 1:4] = Rot.T
-    F[4:7, 4:7] = torch.eye(3, **z)
+    F = _blocks_7x7(torch.as_tensor(kP, **z), Rot.T, torch.eye(3, **z))
     tan_a = torch.tan(X[0])
     GProd = -so3.hat(X[1:4])
-    Q = torch.zeros((7, 7), **z)
-    Q[0, 0] = QKp / (1.0 + tan_a * tan_a)
-    Q[1:4, 1:4] = GProd.T @ Qrot @ GProd + Qg
-    Q[4:7, 4:7] = Qbias
+    Q = _blocks_7x7(QKp / (1.0 + tan_a * tan_a), GProd.T @ Qrot @ GProd + Qg, Qbias)
     X = F @ X
     Pp = F @ P @ F.T + Q
 
@@ -165,8 +168,8 @@ def estimate_bias(a_s, a_v, kP, Rot, X, P, Qg, Qrot, Qbias, QKp, Rg, Rs, Rv, Wvw
     b_est = X[4:7]
     # --- re-fuse the rigid transform with the bias information (core.cpp:394-405) ---
     WVBias = JtJ[4:7, 4:7]
-    Wb = torch.zeros((6, 6), **z)
-    Wb[3:, 3:] = WVBias
+    z3 = torch.zeros((3, 3), **z)
+    Wb = torch.cat([torch.cat([z3, z3], dim=1), torch.cat([z3, WVBias], dim=1)])
     WXc = torch.cat([torch.zeros(3, **z), WVBias @ (Xvw[3:6] - b_est)])
     Xc = linalg.chol_inverse(Wb + Wvw) @ (Wvw @ Xvw + WXc)
     return EstimateBiasOut(K=k, X=X, P=P, g_est=X[1:4], b_est=b_est, Xvw=Xc)

@@ -116,9 +116,9 @@ def build_scale_space(img: torch.Tensor, mats: FrontendMatrices, bf16: bool = Fa
     s0 = mxu_dot(left[:H], mats.R0, bf16)
     s1 = mxu_dot(left[H:], mats.R1, bf16)
     dog = s1 - s0
-    dx = torch.zeros_like(s0)
-    dy = torch.zeros_like(s0)
-    dx[1:H - 1, 1:W - 1] = (s0[:, 2:] - s0[:, :-2])[1:H - 1]
-    dy[1:H - 1, 1:W - 1] = (s0[2:, :] - s0[:-2, :])[:, 1:W - 1]
+    # the central differences inside a zero border
+    pad = torch.nn.functional.pad
+    dx = pad(s0[1:H - 1, 2:] - s0[1:H - 1, :-2], (1, 1, 1, 1))
+    dy = pad(s0[2:, 1:W - 1] - s0[:-2, 1:W - 1], (1, 1, 1, 1))
     mag = dx * dx + dy * dy
     return s0, dog, mag

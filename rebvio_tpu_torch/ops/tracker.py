@@ -37,13 +37,11 @@ def raster_att(new: T.EdgeMap, field_ids: torch.Tensor) -> torch.Tensor:
     zero.  Per cell this is exactly JAX's two chained gathers: a negative id
     never matches, so the clipped row it reads is never used."""
     N = field_ids.shape[0]
-    att = torch.empty((8, N), dtype=f32, device=field_ids.device)
-    att[:2] = 0.0
-    att[2] = field_ids.to(f32)
     pack = torch.stack([new.grad[:, 0], new.grad[:, 1], new.grad_norm, new.pos[:, 0],
                         new.pos[:, 1]])
-    att[3:] = pack[:, torch.clamp(field_ids, 0, new.kmax - 1).to(torch.int64)]
-    return att
+    return torch.cat([torch.zeros((2, N), dtype=f32, device=field_ids.device),
+                      field_ids.to(f32)[None],
+                      pack[:, torch.clamp(field_ids, 0, new.kmax - 1).to(torch.int64)]])
 
 
 def try_vel(old: T.EdgeMap, att: torch.Tensor, vel, sigma_rho_min, residuals,
@@ -136,14 +134,17 @@ def gyro_bias_correction(X: torch.Tensor, Wx: torch.Tensor, Wb: torch.Tensor,
     Wb1 = linalg.invert3(linalg.invert3(Wb) + Rb)
     iWgWb = linalg.invert3(Wg + Wb1)
     eye3 = torch.eye(3, dtype=f32, device=X.device)
-    Wxb = Wx.clone()
-    Wxb[3:, 3:] += Wg @ (eye3 - iWgWb @ Wg)
+    Wxb = _add_lower_right(Wx, Wg @ (eye3 - iWgWb @ Wg))
     X1 = Wx @ X  # (the dgbias-prior term is identically zero, core.cpp:276)
     X_new = linalg.chol_inverse(Wxb) @ X1
     dgbias = iWgWb @ (Wg @ X_new[3:])
-    Wx_new = Wx.clone()
-    Wx_new[3:, 3:] += Wg
-    return X_new, Wx_new, Wg + Wb1, dgbias
+    return X_new, _add_lower_right(Wx, Wg), Wg + Wb1, dgbias
+
+
+def _add_lower_right(M: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """``M`` [6,6] with ``D`` [3,3] added to its lower-right block, out of
+    place (so that it batches under vmap whatever is batched)."""
+    return torch.cat([M[:3], torch.cat([M[3:, :3], M[3:, 3:] + D], dim=1)])
 
 
 def regularize_and_update_depth(em: T.EdgeMap, vel: torch.Tensor, threshold: float,

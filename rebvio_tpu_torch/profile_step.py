@@ -1,7 +1,7 @@
 """Where the time of the step goes on the GPU.
 
     python -m rebvio_tpu_torch.profile_step [--vio] [--graph] [--frames 8] [--out FILE]
-        [--matcher walk]
+        [--matcher walk] [--batch B]
 
 Runs the parity-profile VO slice (752x480, 16000 keylines, 8 tube probes)
 over synthetic seed 0, or with ``--vio`` the VIO slice (``PipelineConfig()``:
@@ -17,7 +17,10 @@ host syncs.  Prints one JSON line: the wall time per frame, the device's
 busy and idle share of that wall time (union of the kernel intervals), the
 device time per frame of each kernel name (top 12), the ported kernels'
 device time, launches and share, and the host syncs per frame with the source
-line of each.  Needs a GPU.
+line of each.  ``--batch B`` runs B sequences in lockstep
+(``VioRunner(batch=B).process_batch``: synthetic seeds 0..B-1, made in worker
+processes) and reports the same per batched step, with the frames per
+second over all lanes.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--matcher", choices=["tube", "walk"], default="tube")
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="B sequences in lockstep, one batched step a frame (0: one sequence)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a GPU (torch.cuda.is_available() is False)")
@@ -73,13 +78,25 @@ def main(argv=None) -> dict:
         cfg = PipelineConfig(use_imu=False, **variant)
         warm = 2
     n = warm + 2 * args.frames
-    seq = synthetic.generate(CameraConfig(), n_frames=n, seed=0, distort=args.vio,
-                             imu_preroll_s=0.1 if args.vio else 0.0)
-    runner = VioRunner(cfg, undistort=args.vio, device="cuda", graph=args.graph)
+    gen = dict(n_frames=n, distort=args.vio, imu_preroll_s=0.1 if args.vio else 0.0)
+    runner = VioRunner(cfg, undistort=args.vio, device="cuda", graph=args.graph,
+                       batch=args.batch)
+    if args.batch:
+        import concurrent.futures as cf
+        import functools
+        import multiprocessing as mp
 
-    def frame(i):
-        runner.process_frame(seq.images[i], int(seq.ts_us[i]), seq.imu_ts_us, seq.imu_gyro,
-                             seq.imu_acc)
+        with cf.ProcessPoolExecutor(min(args.batch, 8), mp.get_context("spawn")) as ex:
+            seqs = list(ex.map(functools.partial(_stream, **gen), range(args.batch)))
+
+        def frame(i):
+            runner.process_batch(seqs, i)
+    else:
+        seq = synthetic.generate(CameraConfig(), seed=0, **gen)
+
+        def frame(i):
+            runner.process_frame(seq.images[i], int(seq.ts_us[i]), seq.imu_ts_us, seq.imu_gyro,
+                                 seq.imu_acc)
 
     for i in range(warm):
         frame(i)
@@ -126,6 +143,7 @@ def main(argv=None) -> dict:
         "slice": "vio" if args.vio else "vo",
         "variant": variant,
         "mode": "graph" if args.graph else "eager",
+        "batch": args.batch,
         "device": torch.cuda.get_device_name(0),
         "frames": args.frames,
         "wall_ms_per_frame": wall_us / args.frames / 1e3,
@@ -142,12 +160,19 @@ def main(argv=None) -> dict:
         "host_syncs_per_frame_by_site": {k: v / args.frames
                                          for k, v in sorted(sync_sites.items())},
     }
+    if args.batch:
+        # a "frame" above is one batched step of B lanes
+        out["frames_per_s_all_lanes"] = args.batch * args.frames / (wall_us / 1e6)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:
         with open(args.out, "w") as f:
             f.write(line + "\n")
     return out
+
+
+def _stream(seed: int, **gen):
+    return synthetic.generate(CameraConfig(), seed=seed, **gen)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,7 @@
     python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --matcher walk
     python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 60 --checkpoint-out ck.npz
     python -m rebvio_tpu_torch.run --dataset synthetic --mode vio --frames 120 --resume ck.npz
+    python -m rebvio_tpu_torch.run --dataset euroc --root <ASL tree> --loader native
 
 Runs on the GPU unless ``--device cpu`` is given; there the step is one CUDA
 graph a frame (``--chunk N``: a graph of N frames).  Writes a
@@ -26,8 +27,13 @@ pixel-walk matcher on the rasterized field, unless ``--df-mode jfa``);
 ``--checkpoint-out`` saves the state after the run (an ``.npz`` in the JAX
 package's key paths); ``--resume`` copies a saved state (the port's or
 JAX's) into the runner and continues the stream after the frames that state
-has seen.  ``--timing`` prints section times to stderr.  Only what the port
-implements is offered: argparse rejects every other flag of the JAX runner.
+has seen.  ``--timing`` prints section times to stderr.  ``--dataset euroc``
+reads an ASL-format sequence (``--root``; ``--start`` / ``--end`` in seconds)
+with the native prefetch ring or the in-process decoder (``--loader``; the
+JSON line says which ran), undistorts it on the device and reports the ATE
+against its ground truth, taken at the first ground-truth sample at or after
+each frame; the calibration is EuRoC cam0 unless ``--camera-json`` gives
+another.  ``--preset euroc-fast`` is ``configs.fast_profile``.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ import torch
 
 from rebvio_tpu_torch import eval as ev
 from rebvio_tpu_torch.configs import (CameraConfig, CoreConfig, EdgeDetectorConfig,
-                                      PipelineConfig, default_df_mode)
+                                      PipelineConfig, default_df_mode, fast_profile)
 from rebvio_tpu_torch.graph import copy_tree_
 from rebvio_tpu_torch.runner import VioRunner
 from rebvio_tpu_torch.utils import logging as rlog
@@ -61,8 +67,16 @@ PRESETS = {
 }
 
 
-def preset_config(preset: str, use_imu: bool, **variants) -> PipelineConfig:
-    """The preset's PipelineConfig; ``variants``: ``df_mode``, ``matcher``."""
+def preset_config(preset: str, use_imu: bool, camera_json: str = None,
+                  **variants) -> PipelineConfig:
+    """The preset's PipelineConfig; ``variants``: ``df_mode``, ``matcher``.
+    ``camera_json``: the calibration file's camera with the default detector
+    and core (not with ``euroc-fast``, whose profile wins, as in JAX)."""
+    if preset == "euroc-fast":
+        return fast_profile(use_imu=use_imu, **variants)
+    if camera_json:
+        return PipelineConfig(camera=CameraConfig.from_json(camera_json), use_imu=use_imu,
+                              **variants)
     if preset == "euroc":
         return PipelineConfig(use_imu=use_imu, **variants)
     cam, det, core = PRESETS[preset]
@@ -72,9 +86,18 @@ def preset_config(preset: str, use_imu: bool, **variants) -> PipelineConfig:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dataset", choices=["synthetic"], default="synthetic")
+    ap.add_argument("--dataset", choices=["synthetic", "euroc"], default="synthetic")
+    ap.add_argument("--root", help="EuRoC sequence root (contains mav0/)")
+    ap.add_argument("--camera-json", help="camera calibration JSON (default EuRoC cam0)")
+    ap.add_argument("--start", type=float, default=None, help="euroc start [s]")
+    ap.add_argument("--end", type=float, default=None, help="euroc end [s]")
+    ap.add_argument("--loader", choices=["auto", "native", "python"], default="auto",
+                    help="euroc image decode: native = the threaded C++ prefetch ring "
+                         "(native/loader.cpp, built at first use into build/rebvio_loader/), "
+                         "python = in process, auto = native when it builds here")
     ap.add_argument("--mode", choices=["vio", "vo"], default="vio")
-    ap.add_argument("--frames", type=int, default=120)
+    ap.add_argument("--frames", type=int, default=120,
+                    help="synthetic frames (euroc runs the --start/--end window)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--odometry-out", default=None)
     ap.add_argument("--checkpoint-out", default=None,
@@ -83,8 +106,11 @@ def main(argv=None):
                     help="start from a saved state (the port's or the JAX package's "
                          "checkpoint) and run the frames after those it has seen")
     ap.add_argument("--timing", action="store_true", help="print section times to stderr")
-    ap.add_argument("--preset", choices=["euroc", "half", "small"], default="euroc",
-                    help="camera/detector size preset (half/small for quick runs)")
+    ap.add_argument("--preset", choices=["euroc", "euroc-fast", "half", "small"],
+                    default="euroc",
+                    help="camera/detector size preset (half/small for quick runs; "
+                         "euroc-fast = full resolution, 8k keylines, 4-probe matcher: "
+                         "configs.fast_profile)")
     ap.add_argument("--ba", action="store_true",
                     help="build a keyframe map during the run and refine it with "
                          "Schur-complement bundle adjustment")
@@ -136,11 +162,25 @@ def main(argv=None):
     if args.matcher == "tube" and df_mode != "jfa":
         ap.error("--matcher tube requires --df-mode jfa")
     pipelined = args.chunk_mode == "pipelined"
-    config = preset_config(args.preset, use_imu=(args.mode == "vio"), matcher=args.matcher,
-                           df_mode=df_mode)
-    seq = synthetic.generate(config.camera, n_frames=args.frames, seed=args.seed)
-    gt = seq.gt_pos
-    runner = VioRunner(config, undistort=False, device=args.device)
+    config = preset_config(args.preset, use_imu=(args.mode == "vio"),
+                           camera_json=args.camera_json, matcher=args.matcher, df_mode=df_mode)
+    extra = {}
+    if args.dataset == "synthetic":
+        seq = synthetic.generate(config.camera, n_frames=args.frames, seed=args.seed)
+        gt = seq.gt_pos
+    else:
+        from rebvio_tpu_torch.data import euroc
+
+        if not args.root:
+            ap.error("--root required for euroc")
+        seq = euroc.load(args.root, args.start, args.end, loader=args.loader,
+                         rows=config.camera.rows, cols=config.camera.cols)
+        extra["loader"] = seq.resolved_loader()
+        gt = None
+        if seq.gt_pos is not None:
+            sel = np.clip(np.searchsorted(seq.gt_ts_us, seq.ts_us), 0, len(seq.gt_ts_us) - 1)
+            gt = seq.gt_pos[sel]
+    runner = VioRunner(config, undistort=args.dataset == "euroc", device=args.device)
     on_gpu = runner.device.type == "cuda"
 
     builder = None
@@ -161,7 +201,7 @@ def main(argv=None):
                          np.asarray([], dtype=np.int64), np.zeros((0, 3)), np.zeros((0, 3)))
     warm = min(args.kf_every if mapping else args.chunk, len(seq.images))
     if warm > 1:
-        head = dataclasses.replace(seq, images=seq.images[:warm], ts_us=seq.ts_us[:warm])
+        head = _frames_from(seq, 0, warm)
         if mapping:
             runner.run_mapped(head, new_builder(), chunk=args.kf_every)
         else:
@@ -178,9 +218,8 @@ def main(argv=None):
             ap.error(f"--resume: the state has seen {start} frames; --frames {args.frames} "
                      f"leaves none to run")
         runner.continue_after(int(seq.ts_us[start - 1]), seq.imu_ts_us)
-        seq = dataclasses.replace(seq, images=seq.images[start:], ts_us=seq.ts_us[start:],
-                                  gt_pos=seq.gt_pos[start:], gt_R_wc=seq.gt_R_wc[start:])
-        gt = seq.gt_pos
+        seq = _frames_from(seq, start)
+        gt = None if gt is None else gt[start:]
         log.info("resumed state from %s after frame %d", args.resume, start - 1)
     if on_gpu:
         torch.cuda.synchronize()
@@ -211,11 +250,11 @@ def main(argv=None):
         checkpoint.save(args.checkpoint_out, runner.state)
         log.info("state checkpoint written to %s", args.checkpoint_out)
 
-    out = {"frames": n, "fps": n / elapsed, "run_ok": bool(res.run_ok[-1])}
+    out = {"frames": n, "fps": n / elapsed, "run_ok": bool(res.run_ok[-1]), **extra}
     if rt is not None:
         out.update(realtime_speed=args.realtime, rt_processed=rt.processed,
                    rt_dropped=rt.dropped, rt_worst_latency_ms=rt.worst_latency_s * 1e3)
-        gt = gt[rt.frame_idx]
+        gt = None if gt is None else gt[rt.frame_idx]
     if args.pose_graph and builder.n_keyframes() >= 3:
         from rebvio_tpu_torch.ba import loop_closure as lc
         from rebvio_tpu_torch.ba import pose_graph as pgm
@@ -234,9 +273,11 @@ def main(argv=None):
         out["pg_loop_factors"] = n_loops
         out["pg_cost_before"] = float(hist[0])
         out["pg_cost_after"] = float(hist[-1])
-        out["pg_ate_sim3_before"] = ev.ate_rmse(kf_t, gt[kf_idx], align=True, with_scale=True)
-        out["pg_ate_sim3"] = ev.ate_rmse(g_opt.t.cpu().numpy(), gt[kf_idx], align=True,
-                                         with_scale=True)
+        if gt is not None:
+            out["pg_ate_sim3_before"] = ev.ate_rmse(kf_t, gt[kf_idx], align=True,
+                                                    with_scale=True)
+            out["pg_ate_sim3"] = ev.ate_rmse(g_opt.t.cpu().numpy(), gt[kf_idx], align=True,
+                                             with_scale=True)
     p = builder.build_problem(min_obs=2, device=runner.device) if args.ba else None
     if p is not None:
         from rebvio_tpu_torch.ba import problem as bap
@@ -251,14 +292,26 @@ def main(argv=None):
         out["ba_landmarks"] = int(p.lm_valid.sum())
         out["ba_rms_before_px"] = float(np.sqrt(float(terms0.cost) / n_obs))
         out["ba_rms_after_px"] = float(np.sqrt(float(terms1.cost) / n_obs))
-        out["ba_ate_sim3"] = ev.ate_rmse(p_opt.t.cpu().numpy(), gt[kf_idx], align=True,
-                                         with_scale=True)
-    out["ate_sim3"] = ev.ate_rmse(res.position, gt, align=True, with_scale=True)
-    out["ate_se3"] = ev.ate_rmse(res.position, gt, align=True, with_scale=False)
+        if gt is not None:
+            out["ba_ate_sim3"] = ev.ate_rmse(p_opt.t.cpu().numpy(), gt[kf_idx], align=True,
+                                             with_scale=True)
+    if gt is not None:
+        out["ate_sim3"] = ev.ate_rmse(res.position, gt, align=True, with_scale=True)
+        out["ate_se3"] = ev.ate_rmse(res.position, gt, align=True, with_scale=False)
     print(json.dumps(out))
     if args.timing:
         print(timing.report(), file=sys.stderr)
     return 0
+
+
+def _frames_from(seq, start: int, stop: int = None):
+    """The sequence's frames ``start:stop`` (the IMU stream kept whole: the
+    runner's cursor takes the samples each frame needs)."""
+    if hasattr(seq, "image_paths"):         # EuRoC: the paths, decoded on access
+        return dataclasses.replace(seq, image_paths=seq.image_paths[start:stop],
+                                   ts_us=seq.ts_us[start:stop])
+    return dataclasses.replace(seq, images=seq.images[start:stop], ts_us=seq.ts_us[start:stop],
+                               gt_pos=seq.gt_pos[start:stop], gt_R_wc=seq.gt_R_wc[start:stop])
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ On a CUDA device undistortion and the step are one CUDA graph, captured at
 the first frame and replayed for every frame after it (``graph.py``), fed
 from a pinned staging ring: ``run`` uploads frame i+1 before it replays
 step i.  ``graph=False`` runs the same functions eagerly (the reference the
-graph is held to); on the CPU they always run eagerly.  Modes, as in the JAX
+graph is held to); on the CPU they always run eagerly.  ``VioRunner(config,
+batch=B)`` steps B sequences in lockstep (``run_batched``: the B frames of
+one instant undistorted over the batch, ``parallel.batch.batched_step``, one
+replay a batched frame).  Modes, as in the JAX
 runner: streaming (``run``, ``process_frame``), exact chunks
 (``run(seq, chunk=N)``: N steps in one replay), pipelined chunks
 (``run(seq, chunk=N, pipelined=True)``: N detections at the chunk's
@@ -22,7 +25,7 @@ import collections
 import dataclasses
 import functools
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +36,7 @@ from rebvio_tpu_torch.camera import Undistorter
 from rebvio_tpu_torch.configs import PipelineConfig
 from rebvio_tpu_torch.graph import (ODO_WORDS, SlotLayout, StepProgram, copy_tree_,
                                     odometry_view, pack_trace, trace_words, unpack_trace)
+from rebvio_tpu_torch.parallel.batch import batched_step, init_batched_state
 from rebvio_tpu_torch.pipeline import (frontend_matrices, step_chunk, step_chunk_pipelined,
                                        step_chunk_traced)
 
@@ -41,8 +45,30 @@ from rebvio_tpu_torch.pipeline import (frontend_matrices, step_chunk, step_chunk
 # plus the one being packed
 RING_SLOTS = 4
 # what one replay of a program runs: exact chunks (streaming is a chunk of
-# one), pipelined chunks, exact chunks with the mapping trace
-MODES = {"exact": step_chunk, "pipelined": step_chunk_pipelined, "traced": step_chunk_traced}
+# one), pipelined chunks, exact chunks with the mapping trace, one frame of
+# each of B sequences (the slot's n frames are the B lanes)
+MODES = {"exact": step_chunk, "pipelined": step_chunk_pipelined, "traced": step_chunk_traced,
+         "batched": batched_step}
+
+
+class _Feed:
+    """One sequence's input cursor: the IMU samples since the last frame with
+    ts <= the frame's ts (the drain rule of rebvio.cpp:77-84), and the frame
+    interval."""
+
+    def __init__(self):
+        self.last_ts: Optional[int] = None
+        self.cursor = 0
+
+    def inputs(self, image, ts_us: int, imu_ts, imu_gyro, imu_acc):
+        """(image, gyro, acc, ts, dt) of one frame."""
+        c = j = self.cursor
+        while j < len(imu_ts) and imu_ts[j] <= ts_us:
+            j += 1
+        self.cursor = j
+        dt = 0.0 if self.last_ts is None else (ts_us - self.last_ts) / 1e6
+        self.last_ts = ts_us
+        return image, imu_gyro[c:j], imu_acc[c:j], imu_ts[c:j], dt
 
 
 @dataclasses.dataclass
@@ -76,24 +102,28 @@ def _result(ts, packed: torch.Tensor) -> RunResult:
 
 class VioRunner:
     def __init__(self, config: PipelineConfig, undistort: bool = True, device="cuda",
-                 graph: bool = True):
+                 graph: bool = True, batch: int = 0):
         """``graph``: on a CUDA device, capture and replay the step as one CUDA
-        graph (False: run it eagerly)."""
+        graph (False: run it eagerly).  ``batch`` > 0: a runner of ``batch``
+        sequences in lockstep (``run_batched`` only), its state's leaves
+        [batch, ...]."""
         self.config = config
         self.device = resolve_device(device)
         self.undistorter = (Undistorter(config.camera, config.image_gain, self.device)
                             if undistort else None)
         self.mats = frontend_matrices(config, self.device)
         self.graph = graph and self.device.type == "cuda"
-        self._init_state = T.init_vio_state(config, self.device)
+        self.batch = batch
+        self._init_state = (init_batched_state(config, batch, self.device) if batch else
+                            T.init_vio_state(config, self.device))
         # with a graph, the static state: updated in place by every replay
         self.state = T.tree_map(torch.clone, self._init_state)
         # (frames per replay, mode of MODES) -> program
         self._programs: Dict[Tuple[int, str], StepProgram] = {}
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.last_event: Optional[torch.cuda.Event] = None
-        self._last_ts: Optional[int] = None
-        self._imu_cursor = 0
+        self._feed = _Feed()
+        self._feeds = [_Feed() for _ in range(batch)]
 
     def reset(self):
         """Back to the initial state; with a graph, copied into the static
@@ -102,12 +132,14 @@ class VioRunner:
             copy_tree_(self.state, self._init_state)
         else:
             self.state = T.tree_map(torch.clone, self._init_state)
-        self._last_ts = None
-        self._imu_cursor = 0
+        self._feed = _Feed()
+        self._feeds = [_Feed() for _ in range(self.batch)]
 
     def _frames(self, raw):
+        """A slot's frames [n, H, W] undistorted (or cast and gained) over the
+        batch."""
         if self.undistorter is not None:
-            return torch.stack([self.undistorter(raw[k]) for k in range(raw.shape[0])])
+            return self.undistorter(raw)
         return raw.to(torch.float32) * self.config.image_gain
 
     def _steps(self, state, raw, imu, dts, mode: str = "exact"):
@@ -122,17 +154,14 @@ class VioRunner:
     def _frame_inputs(self, image, ts_us: int, imu_ts, imu_gyro, imu_acc):
         """(image, gyro, acc, ts, dt) of one frame: the IMU samples since the
         last frame with ts <= ts_us, and the frame interval."""
-        c = j = self._imu_cursor
-        while j < len(imu_ts) and imu_ts[j] <= ts_us:
-            j += 1
-        self._imu_cursor = j
-        dt = 0.0 if self._last_ts is None else (ts_us - self._last_ts) / 1e6
-        self._last_ts = ts_us
-        return image, imu_gyro[c:j], imu_acc[c:j], imu_ts[c:j], dt
+        return self._feed.inputs(image, ts_us, imu_ts, imu_gyro, imu_acc)
 
     def _stage(self, frames, mode: str = "exact"):
         """Stage the frames' inputs (a list of ``_frame_inputs``) in a slot of
         the program for their count and ``mode``.  Returns (program, slot)."""
+        if (mode == "batched") != bool(self.batch):
+            raise ValueError(f"a runner of batch {self.batch} cannot run mode {mode!r}: "
+                             "run_batched is the batched runner's one mode")
         key = (len(frames), mode)
         prog = self._programs.get(key)
         if prog is None:
@@ -158,8 +187,8 @@ class VioRunner:
         the next frame's interval is taken from it, and the IMU samples of
         ``imu_ts`` (the stream the frames will be passed with) up to it count
         as consumed."""
-        self._last_ts = int(ts_us)
-        self._imu_cursor = int(np.searchsorted(np.asarray(imu_ts), ts_us, side="right"))
+        self._feed.last_ts = int(ts_us)
+        self._feed.cursor = int(np.searchsorted(np.asarray(imu_ts), ts_us, side="right"))
 
     def process_frame(self, image, ts_us: int, imu_ts, imu_gyro, imu_acc) -> T.Odometry:
         """Process one frame given the entire IMU stream; the runner keeps a
@@ -188,13 +217,52 @@ class VioRunner:
             idx, mode = groups[g]
             return self._stage([self._seq_frame(seq, i) for i in idx], mode)
 
+        outs = self._replay_prefetched(len(groups), stage)
+        return _result([int(t) for t in seq.ts_us[:n]], torch.cat(outs))
+
+    def _replay_prefetched(self, n: int, stage) -> List[torch.Tensor]:
+        """Replay ``n`` slots in order, ``stage(g)`` staging slot g: slot g+1
+        is staged and uploaded before slot g is launched.  Returns each
+        replay's packed odometry."""
         outs = []
-        staged = stage(0) if groups else None
-        for g in range(len(groups)):
-            nxt = stage(g + 1) if g + 1 < len(groups) else None
+        staged = stage(0) if n else None
+        for g in range(n):
+            nxt = stage(g + 1) if g + 1 < n else None
             outs.append(self._run(*staged))
             staged = nxt
-        return _result([int(t) for t in seq.ts_us[:n]], torch.cat(outs))
+        return outs
+
+    def run_batched(self, seqs, frames: range = None) -> List[RunResult]:
+        """Run ``batch`` sequences in lockstep (rebvio_tpu/parallel/batch.py):
+        frame i of every sequence (each with its own IMU cursor) in one staging
+        slot, undistorted over the batch and stepped by
+        ``parallel.batch.batched_step``, one replay a batched frame, frame i+1
+        staged before step i.  ``frames``: the frame indices to run (default:
+        all the sequences have); a later call continues the streams (``reset``
+        starts them over).  The odometry is read back once, at the end.
+        Returns one RunResult a sequence."""
+        self._check_batch(seqs)
+        idx = list(frames if frames is not None else range(min(len(sq.images) for sq in seqs)))
+        outs = self._replay_prefetched(len(idx), lambda k: self._stage_batch(seqs, idx[k]))
+        packed = torch.stack(outs, dim=1) if outs else torch.zeros((self.batch, 0, ODO_WORDS))
+        return [_result([int(sq.ts_us[i]) for i in idx], packed[b]) for b, sq in enumerate(seqs)]
+
+    def _check_batch(self, seqs):
+        if len(seqs) != self.batch:
+            raise ValueError(f"{len(seqs)} sequences for a runner of batch {self.batch}")
+
+    def _stage_batch(self, seqs, i: int):
+        return self._stage([f.inputs(sq.images[i], int(sq.ts_us[i]), sq.imu_ts_us,
+                                     sq.imu_gyro, sq.imu_acc)
+                            for f, sq in zip(self._feeds, seqs)], "batched")
+
+    def process_batch(self, seqs, i: int) -> torch.Tensor:
+        """Frame ``i`` of each of the ``batch`` sequences as one batched step
+        (continuing their streams).  Returns the packed odometry [batch,
+        ODO_WORDS] on the runner's device (its own copy; nothing is read
+        back: ``graph.odometry_view`` reads it)."""
+        self._check_batch(seqs)
+        return self._run(*self._stage_batch(seqs, i))
 
     def run_mapped(self, seq, builder, chunk: int = 0) -> RunResult:
         """Run with a ``KeyframeMapBuilder`` at chunk speed

@@ -136,3 +136,51 @@ def test_round_half_away():
     x = np.array([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 0.49, -0.51], np.float32)
     np.testing.assert_array_equal(t2n(tDF._round_half_away(torch.as_tensor(x))),
                                   np.asarray(jDF._round_half_away(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_build_att_field_vs_jax_jfa_state(monkeypatch, scale):
+    """``distance_field._jfa_state``, JAX's XLA fixed-point flood (the CPU
+    default, pinned by REBVIO_PALLAS_JFA=0), has no port of its own: K1's
+    plain version plays its role.  The port's ``build_att_field`` from the
+    keyline table (the scatter seeding, then the flood; exact subpixel
+    metric) against JAX's on that route, under
+    tests/test_torch_nn_field.py's rule for ``build_nn_field``: a differing
+    id must be of a keyline no farther than the fixed-point band (0.6 in
+    d2), in at most 0.2 % of the cells; and every cell's attribute planes
+    must be those of the keyline it names."""
+    from torch_helpers import make_random_map
+
+    monkeypatch.setenv("REBVIO_PALLAS_JFA", "0")
+    rng = np.random.RandomState(7)
+    H, W, K, kmax, R = 40, 56, 36, 64, 8
+    jem, tem = make_random_map(rng, K, kmax, H, W)
+    want = np.asarray(jDF.build_att_field(jem, R, H, W, scale))
+    got = t2n(tDF.build_att_field(tem, R, H, W, scale))
+    frows, fcols, _ = tDF.field_geometry(R, H, W, scale)
+    assert got.shape == want.shape == (8, frows * fcols)
+    pos = np.asarray(jem.pos)
+    grad = np.asarray(jem.grad)
+    gnorm = np.asarray(jem.grad_norm)
+    yy, xx = np.divmod(np.arange(frows * fcols), fcols)
+    gid, wid = got[2].astype(np.int64), want[2].astype(np.int64)
+    assert (gid >= 0).sum() > 0.2 * gid.size
+    mismatch = 0
+    for i in np.nonzero(gid != wid)[0]:
+        g, w = gid[i], wid[i]
+        if (g < 0) != (w < 0):
+            mismatch += 1
+            continue
+        dg = (pos[g, 0] / scale - xx[i]) ** 2 + (pos[g, 1] / scale - yy[i]) ** 2
+        dw = (pos[w, 0] / scale - xx[i]) ** 2 + (pos[w, 1] / scale - yy[i]) ** 2
+        mismatch += abs(dg - dw) > 0.6
+    assert mismatch <= 0.002 * frows * fcols, mismatch
+    # the attribute planes of every cell are those of the keyline it names
+    # (the gradient norm recomputed by the flood within an ulp of the map's)
+    for field, ids in ((got, gid), (want, wid)):
+        k = ids >= 0
+        np.testing.assert_array_equal(field[3][k], grad[ids[k], 0])
+        np.testing.assert_array_equal(field[4][k], grad[ids[k], 1])
+        np.testing.assert_allclose(field[5][k], gnorm[ids[k]], rtol=2e-7)
+        np.testing.assert_array_equal(field[6][k], pos[ids[k], 0])
+        np.testing.assert_array_equal(field[7][k], pos[ids[k], 1])

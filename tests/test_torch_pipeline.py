@@ -113,7 +113,8 @@ def test_port_imports_no_jax():
                    "ba/pose_graph.py", "ba/loop_closure.py", "ba/keyframe_map.py",
                    "ba/problem.py", "ba/distributed.py", "utils/checkpoint.py",
                    "utils/timing.py", "utils/logging.py", "utils/visualize.py",
-                   "tools/jfa_ab.py"):
+                   "tools/jfa_ab.py", "data/euroc.py", "data/native_loader.py",
+                   "parallel/batch.py", "parallel/keyline_shard.py", "parallel/multihost.py"):
         assert "rebvio_tpu_torch/" + module in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
