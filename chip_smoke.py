@@ -4,8 +4,9 @@ profile (752x480, 16000 keylines, 8 tube probes): the vision-only VO step,
 the VIO step (IMU, gyro-bias fusion, SAB filter, undistortion), both
 through the streaming runner as one CUDA graph a frame, the
 loop-closure / pose-graph back end on the VIO run's keyframe maps, the
-field timing tool, and the reference-semantics step (the rasterized field
-and the pixel-walk matcher) with the pipelined chunk mode.
+field timing tool, the reference-semantics step (the rasterized field and
+the pixel-walk matcher) with the pipelined chunk mode, mapping and the BA,
+and eight sequences batched in lockstep, with either step.
 
     python3 chip_smoke.py
 
@@ -134,12 +135,31 @@ Phases (any failure exits non-zero):
      python and --loader native (built from
      native/loader.cpp; a failed build is reported with the compiler's
      message), each equal to a graphed VioRunner.run on the same frames bit
-     for bit, with both loaders' decode rates and the ATE; the
+     for bit, with both loaders' decode rates, which in-process decoder ran
+     (PIL and its version, or numpy when PIL does not import) and the numpy
+     fallback's rate, and the ATE; the
      keyline-sharded LM solve (parallel/keyline_shard.py) at world size 1
      over NCCL against kernels.minimize_vel on phase 2's frame pair (vel
      rtol 1e-4, forward ids equal, 1 + iterations single-pass launches) and
      make_pod_mesh at (1, 1); profile_step --vio --graph with and without
-     --batch 8 (operations, device busy and idle share a (batched) step).
+     --batch 8 (operations, device busy and idle share a (batched) step);
+ 11. the reference-semantics step batched, PipelineConfig(df_mode="raster",
+     matcher="walk"), B = 8 lanes: phase 10's eight streams through
+     run_batched, eager (its steps under set_sync_debug_mode("error")) and
+     one CUDA graph a batched step, bit-identical, counters as in 3 (K2 on
+     the raster table, K5 alone and K3 one call a batched step,
+     chol_inverse three); no op through vmap's per-lane fallback; lanes 5-7
+     equal lanes 0-2 bit for bit; each lane within phase 10's lane bounds of
+     its stream's unbatched R+W graphed run (the five run here); the seed-0
+     lanes against phase 8's R+W VIO golden
+     (tests/data/torch_golden_rw_vio_euroc_seed0_120.txt) at VIO_BOUNDS and
+     the reference binary's golden; the batched step under 50 ms; K2 on the
+     [8, 8, 480*752] raster tables and K5 alone, torch.func.vmap of their
+     wrappers on the recorded inputs of batched step 16, against their plain
+     versions under vmap lane by lane at phase 2's tolerances and against 8
+     one-lane calls bit for bit; profile_step --vio --graph --matcher walk
+     with and without --batch 8 (operations, device busy and idle share,
+     each batched kernel's device ms beside 8x its bound).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1049,14 +1069,15 @@ def lane_wrappers(kernels, linalg, name: str, args, debug: bool = False):
     return list(args), linalg.chol_inverse, linalg.chol_inverse_plain
 
 
-def batched_kernels(torch, kernels, recorded, bounds, card):
-    """Each batched kernel as the batched step reaches it, torch.func.vmap of
-    its wrapper over the [B, ...] lanes that the step gave its launcher
-    (``recorded``): against the plain version under vmap on the same lanes,
-    lane by lane at phase 2's tolerances, and against B one-lane calls of
-    the wrapper, bit for bit; its time, B x phase 2's one-lane bound
-    (``bounds``), the plain version's time.  Returns (error or None, the
-    kernels' report lines)."""
+def batched_kernels(torch, kernels, recorded, bounds, card, names=tuple(BATCH_LAUNCHERS),
+                    label="batched", phase=10):
+    """Each batched kernel ``names`` as the batched step reaches it,
+    torch.func.vmap of its wrapper over the [B, ...] lanes that the step
+    gave its launcher (``recorded``): against the plain version under vmap
+    on the same lanes, lane by lane at phase 2's tolerances, and against B
+    one-lane calls of the wrapper, bit for bit; its time, B x phase 2's
+    one-lane bound (``bounds``), the plain version's time.  Returns (error
+    or None, the kernels' report lines)."""
     from rebvio_tpu_torch.geometry import linalg
 
     vmap = torch.func.vmap
@@ -1065,10 +1086,10 @@ def batched_kernels(torch, kernels, recorded, bounds, card):
         return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
     entries = []
-    for name in BATCH_LAUNCHERS:
+    for name in names:
         args = recorded.get(name)
         if args is None:
-            return f"phase 10: the batched step never launched {name}", None
+            return f"phase {phase}: the batched step never launched {name}", None
         lanes_in, fn, plain_fn = lane_wrappers(kernels, linalg, name, args, debug=True)
         got = as_tuple(vmap(fn)(*lanes_in))
         ref = as_tuple(vmap(plain_fn)(*lanes_in))
@@ -1114,7 +1135,7 @@ def batched_kernels(torch, kernels, recorded, bounds, card):
                                               for b in range(BATCH)])
         plain_ms = median_ms(torch, lambda: plain_b(*lanes_in), reps=5, warm=1)
         one = bounds.get(name)
-        rec = dict(name=f"{name} (batched, B={BATCH})", kernel=name, lanes=BATCH,
+        rec = dict(name=f"{name} ({label}, B={BATCH})", kernel=name, lanes=BATCH,
                    shapes=[list(t.shape) for t in lanes_in],
                    max_abs_err=err, max_rel_err=rel, tol=tol, exact_vs_plain=exact,
                    lanes_vs_plain=per_lane,
@@ -1125,11 +1146,99 @@ def batched_kernels(torch, kernels, recorded, bounds, card):
         print(json.dumps({"check": "batched kernel (vmap of its wrapper) vs its plain version "
                                    "under vmap and vs B one-lane calls", **rec}), flush=True)
         if error:
-            return f"phase 10: batched {name} against its plain version: {error}", None
+            return f"phase {phase}: {label} {name} against its plain version: {error}", None
         if not same:
-            return f"phase 10: batched {name} differs from {BATCH} unbatched launches", None
+            return f"phase {phase}: {label} {name} differs from {BATCH} unbatched launches", None
         entries.append(rec)
     return None, entries
+
+
+def drive_batched(np, torch, kernels, VioRunner, cfg, seqs, launchers, phase: int):
+    """The BATCH streams ``seqs`` in lockstep through VioRunner(cfg,
+    undistort=True, batch=BATCH).run_batched: eager, its first two batched
+    steps with vmap's per-lane fallback warnings on (every op that has no
+    batching rule), then every step under set_sync_debug_mode("error"), the
+    ``launchers``' [B, ...] inputs recorded at batched step 16 (the SAB
+    filter engaged); then one CUDA graph a batched step (the main path),
+    warmed up, captured and reset first.  The counters are set to 0 just
+    before each run and read just after.  Returns a dict (the graphed run's
+    RunResults, its final state, launch counts of both runs, the fallback
+    ops, graph equal to eager, lanes 5-7 equal to lanes 0-2, the timings,
+    the recorded inputs) or an error message."""
+    import warnings
+
+    from rebvio_tpu_torch.graph import odometry_view
+
+    n = min(len(sq.images) for sq in seqs)
+    recorded = {}
+    originals = {name: getattr(kernels, fn) for name, fn in launchers.items()}
+
+    def recorder(name):
+        def call(*args):
+            if name not in recorded or (name == "chol_inverse" and args[0].shape[-1] == 7):
+                recorded[name] = tuple(a.clone() if torch.is_tensor(a) else
+                                       ([t.clone() for t in a] if isinstance(a, list) else a)
+                                       for a in args)
+            return originals[name](*args)
+        return call
+
+    eager = VioRunner(cfg, undistort=True, device="cuda", graph=False, batch=BATCH)
+    # the build, the caches; and every op that vmap runs lane by lane (its
+    # slow fallback, which warns when asked to)
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eager.run_batched(seqs, range(0, 2))
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    fallbacks = sorted({str(w.message).split("batching rule for ")[-1].split(".")[0]
+                        for w in caught if "batching rule" in str(w.message)})
+    eager.reset()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rows = []
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(n):
+            if i == 16:
+                for name, fn in launchers.items():
+                    setattr(kernels, fn, recorder(name))
+            rows.append(eager.process_batch(seqs, i))
+            if i == 16:
+                for name, fn in launchers.items():
+                    setattr(kernels, fn, originals[name])
+    except RuntimeError as e:
+        return f"phase {phase}: the eager batched step synced the host: {e}"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for name, fn in launchers.items():
+            setattr(kernels, fn, originals[name])
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / n * 1e3
+    eager_launches = dict(kernels.LAUNCHES)
+    eager_rows = torch.stack(rows, dim=1).cpu()
+    # ---- one CUDA graph a batched step: the main path
+    runner = VioRunner(cfg, undistort=True, device="cuda", batch=BATCH)
+    runner.run_batched(seqs, range(0, 2))         # warm-up and capture
+    runner.reset()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = runner.run_batched(seqs)                # ends in the one readback
+    graph_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    fields = ("orientation", "position", "num_matches", "run_ok")
+    eager_odo = odometry_view(eager_rows)          # leaves [B, n, ...]
+    same_eager = all(np.array_equal(getattr(r, f), getattr(eager_odo, f)[b].numpy())
+                     for b, r in enumerate(res) for f in fields)
+    repeated = all(all(np.array_equal(getattr(res[b], f), getattr(res[b - 5], f))
+                       for f in fields) for b in range(5, BATCH))
+    return dict(res=res, state=runner.state, launches=launches, launches_eager=eager_launches,
+                fallbacks=fallbacks, graph_equals_eager=same_eager,
+                repeated_lanes_equal=repeated, graph_s=graph_s, eager_ms=eager_ms,
+                recorded=recorded)
 
 
 def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, bounds,
@@ -1151,7 +1260,6 @@ def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, 
 
     from rebvio_tpu_torch import eval as ev, run as run_mod
     from rebvio_tpu_torch.data import euroc, native_loader
-    from rebvio_tpu_torch.graph import odometry_view
     from rebvio_tpu_torch.parallel import keyline_shard, multihost
     from rebvio_tpu_torch.profile_step import main as profile_main
     from rebvio_tpu_torch.runner import VioRunner
@@ -1160,79 +1268,15 @@ def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, 
     seqs = [streams[name] for name in BATCH_LANES]
     n = N_VIO
     t_phase = time.perf_counter()
-    # ---- the batched kernels' inputs: one eager batched step's launches
-    # (frame 16, the SAB filter engaged), recorded at the launchers
-    recorded = {}
-    originals = {name: getattr(kernels, fn) for name, fn in BATCH_LAUNCHERS.items()}
-
-    def recorder(name):
-        def call(*args):
-            if name not in recorded or (name == "chol_inverse" and args[0].shape[-1] == 7):
-                recorded[name] = tuple(a.clone() if torch.is_tensor(a) else
-                                       ([t.clone() for t in a] if isinstance(a, list) else a)
-                                       for a in args)
-            return originals[name](*args)
-        return call
-
-    # ---- eager, the eager steps under set_sync_debug_mode("error")
-    eager = VioRunner(vcfg, undistort=True, device="cuda", graph=False, batch=BATCH)
-    # the build, the caches; and every op that vmap runs lane by lane (its
-    # slow fallback, which warns when asked to)
-    import warnings
-
-    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            eager.run_batched(seqs, range(0, 2))
-    finally:
-        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
-    fallbacks = sorted({str(w.message).split("batching rule for ")[-1].split(".")[0]
-                        for w in caught if "batching rule" in str(w.message)})
-    eager.reset()
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    rows = []
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for i in range(n):
-            if i == 16:
-                for name, fn in BATCH_LAUNCHERS.items():
-                    setattr(kernels, fn, recorder(name))
-            rows.append(eager.process_batch(seqs, i))
-            if i == 16:
-                for name, fn in BATCH_LAUNCHERS.items():
-                    setattr(kernels, fn, originals[name])
-    except RuntimeError as e:
-        return f"phase 10: the eager batched step synced the host: {e}", None, None
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-        for name, fn in BATCH_LAUNCHERS.items():
-            setattr(kernels, fn, originals[name])
-    torch.cuda.synchronize()
-    eager_ms = (time.perf_counter() - t0) / n * 1e3
-    eager_launches = dict(kernels.LAUNCHES)
-    eager_rows = torch.stack(rows, dim=1).cpu()
-    # ---- one CUDA graph a batched step: the main path of this phase
-    runner = VioRunner(vcfg, undistort=True, device="cuda", batch=BATCH)
-    runner.run_batched(seqs, range(0, 2))         # warm-up and capture
-    runner.reset()
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    res = runner.run_batched(seqs)                # ends in the one readback
-    graph_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    run = drive_batched(np, torch, kernels, VioRunner, vcfg, seqs, BATCH_LAUNCHERS, 10)
+    if isinstance(run, str):
+        return run, None, None
+    res, recorded, fallbacks = run["res"], run["recorded"], run["fallbacks"]
+    launches, eager_launches = run["launches"], run["launches_eager"]
+    same_eager, repeated = run["graph_equals_eager"], run["repeated_lanes_equal"]
+    graph_s, eager_ms = run["graph_s"], run["eager_ms"]
     want = {**{k: 0 for k in kernels.LAUNCHES}, "att_flood": n, "minimize_vel": n,
             "tube_match": n, "reg_ekf": n, "estimate_bias": n, "chol_inverse": 3 * n}
-    eager_odo = odometry_view(eager_rows)          # leaves [B, n, ...]
-    same_eager = all(np.array_equal(getattr(r, f), getattr(eager_odo, f)[b].numpy())
-                     for b, r in enumerate(res)
-                     for f in ("orientation", "position", "num_matches", "run_ok"))
-    repeated = all(all(np.array_equal(getattr(res[b], f), getattr(res[b - 5], f))
-                       for f in ("orientation", "position", "num_matches", "run_ok"))
-                   for b in range(5, BATCH))
     lanes, bad = [], []
     for b, (name, r) in enumerate(zip(BATCH_LANES, res)):
         unb = anchor_runs[name]
@@ -1307,10 +1351,21 @@ def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, 
                          gt_pos=vseq.gt_pos[:EUROC_N], gt_R_wc=vseq.gt_R_wc[:EUROC_N])
         want_run = VioRunner(vcfg, undistort=True, device="cuda").run(mem)
         seq = euroc.load(str(root), loader="python")
+        # the in-process reader (PIL where it imports, as JAX's) and, on a
+        # fifth of the frames, its numpy fallback
+        try:
+            import PIL
+            decoder = f"PIL {PIL.__version__}"
+        except ImportError as e:
+            decoder = f"numpy (PIL does not import: {e})"
         t0 = time.perf_counter()
         for p in seq.image_paths:
             euroc._read_png_gray(p)
         rate = {"python": len(seq.image_paths) / (time.perf_counter() - t0)}
+        t0 = time.perf_counter()
+        for p in seq.image_paths[:EUROC_N // 5]:
+            euroc._decode_png_numpy(p)
+        rate["python_numpy_fallback"] = EUROC_N // 5 / (time.perf_counter() - t0)
         native_error = None
         try:
             ld = native_loader.NativeImageLoader(seq.image_paths, vcfg.camera.rows,
@@ -1348,7 +1403,8 @@ def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, 
     print(json.dumps({"check": "EuRoC input: run.main --dataset euroc on an ASL tree of phase "
                                f"4's seed-0 stream ({EUROC_N} uint8 frames, IMU, ground truth; "
                                "rows cycling through the five PNG filters)",
-                      "card": card, "tree_write_s": write_s, "decode_frames_per_s": rate,
+                      "card": card, "tree_write_s": write_s, "python_decoder": decoder,
+                      "decode_frames_per_s": rate,
                       "native_build": native_loader.BUILD_INFO,
                       "native_error": native_error, "cli": cli}), flush=True)
     for loader, out in cli.items():
@@ -1409,6 +1465,142 @@ def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, 
                             if "frames_per_s_all_lanes" in p else {})
                          for label, p in prof.items()}}), flush=True)
     print(json.dumps({"phase": 10, "seconds": time.perf_counter() - t_phase}), flush=True)
+    return None, entries, launches
+
+
+# Phase 11.  The reference-semantics step batched: phase 10's eight lanes
+# through PipelineConfig(df_mode="raster", matcher="walk"); K2 on the raster
+# table and K5 alone launched once a batched step with a lane axis.  A lane
+# against its stream's unbatched R+W graphed run: phase 10's lane bounds;
+# the seed-0 lanes against phase 8's R+W VIO golden at phase 8's bounds
+# (VIO_BOUNDS) and the reference binary's (REF_ATE_BOUND_M).
+RW_BATCH_LAUNCHERS = {"minimize_vel": "_launch_minimize_vel", "reg_ekf": "_launch_match_reg_ekf"}
+BATCH_STEP_LIMIT_MS = 50.0      # EuRoC's 20 Hz for every lane
+
+
+def phase11(np, torch, kernels, card, streams, bounds):
+    """Phase 11 of the module docstring.  ``streams``: phase 10's parity VIO
+    streams; ``bounds``: phase 2's (bound_ms, bound_by) of each kernel at
+    one lane's shapes.  Returns (error or None, the batched R+W kernels'
+    report lines, the graphed batched run's launch counts)."""
+    import contextlib
+    import io
+
+    from rebvio_tpu_torch import eval as ev
+    from rebvio_tpu_torch.configs import PipelineConfig
+    from rebvio_tpu_torch.profile_step import main as profile_main
+    from rebvio_tpu_torch.runner import VioRunner
+
+    t_phase = time.perf_counter()
+    rw = PipelineConfig(df_mode="raster", matcher="walk")
+    seqs = [streams[name] for name in BATCH_LANES]
+    n = N_VIO
+    # ---- each stream's unbatched R+W graphed run, one runner reset between
+    one = VioRunner(rw, undistort=True, device="cuda")
+    one.run(prefix(seqs[0], 1))                   # warm-up and capture
+    unbatched, unbatched_ms = {}, {}
+    for name in dict.fromkeys(BATCH_LANES):
+        one.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        unbatched[name] = one.run(streams[name])  # ends in the one readback
+        unbatched_ms[name] = (time.perf_counter() - t0) / n * 1e3
+    # ---- the batched runs, eager and graphed
+    run = drive_batched(np, torch, kernels, VioRunner, rw, seqs, RW_BATCH_LAUNCHERS, 11)
+    if isinstance(run, str):
+        return run, None, None
+    res, st, launches = run["res"], run["state"], run["launches"]
+    want = {**{k: 0 for k in kernels.LAUNCHES}, "minimize_vel": n, "reg_ekf": n,
+            "estimate_bias": n, "chol_inverse": 3 * n}
+    lanes, bad = [], []
+    for b, (name, r) in enumerate(zip(BATCH_LANES, res)):
+        unb = unbatched[name]
+        rel = np.abs(r.num_matches[1:] - unb.num_matches[1:]) / np.maximum(unb.num_matches[1:], 1)
+        golden, bound = BATCH_GOLDENS[name]
+        cross, ate, ref_ate = anchor_check(np, ev, r, seqs[b], golden, n)
+        vs = dict(ate_sim3_m=ev.ate_rmse(r.position, unb.position),
+                  ate_rigid_m=ev.ate_rmse(r.position, unb.position, with_scale=False),
+                  max_match_rel=float(rel.max()),
+                  max_pos_abs_m=float(np.abs(r.position - unb.position).max()))
+        rec = dict(lane=b, stream=name, vs_unbatched=vs, ref_cross_ate_sim3_m=cross,
+                   ref_bound_m=bound, ate_gt_m=ate, ref_ate_gt_m=ref_ate,
+                   run_ok_all=bool(r.run_ok.all()))
+        lb = BATCH_LANE_BOUNDS
+        checks = [(vs["ate_sim3_m"] < lb["ate_sim3_m"], "sim3 vs unbatched"),
+                  (vs["ate_rigid_m"] < lb["ate_rigid_m"], "rigid vs unbatched"),
+                  (vs["max_match_rel"] <= lb["match_rtol"], "matches vs unbatched"),
+                  (rec["run_ok_all"], "run_ok")]
+        if name == "vio":       # phase 8's R+W golden and the reference binary's
+            rec["rw_golden"], gbad = vio_golden_check(
+                np, ev, r, float(st.K[b]), st.sab_state.g_est[b].cpu().numpy(), RW_VIO_GOLDEN,
+                VIO_BOUNDS, n)
+            checks += [(not gbad, f"R+W golden {gbad}"), (cross < bound, "reference golden"),
+                       (ate < ref_ate + REF_GT_MARGIN_M, "ATE vs ground truth")]
+        bad += [f"lane {b} ({name}): {what}" for ok, what in checks if not ok]
+        lanes.append(rec)
+    step_ms = run["graph_s"] / n * 1e3
+    if step_ms >= BATCH_STEP_LIMIT_MS:
+        bad.append(f"{step_ms:.2f} ms a batched step, not under {BATCH_STEP_LIMIT_MS}")
+    print(json.dumps({"slice": f"batched R+W VIO, B={BATCH}: VioRunner(PipelineConfig("
+                               "df_mode='raster', matcher='walk'), undistort=True, batch=8)"
+                               ".run_batched, one CUDA graph a batched step", "card": card,
+                      "frames": n, "ms_per_batched_step": step_ms,
+                      "ms_per_batched_step_eager": run["eager_ms"],
+                      "frames_per_s_all_lanes": BATCH * n / run["graph_s"],
+                      "unbatched_graph_ms_per_frame": unbatched_ms,
+                      "graph_equals_eager": run["graph_equals_eager"],
+                      "repeated_lanes_equal": run["repeated_lanes_equal"],
+                      "vmap_fallback_ops": run["fallbacks"], "launches": launches,
+                      "launches_eager": run["launches_eager"],
+                      "lane_bounds": BATCH_LANE_BOUNDS, "lanes": lanes, "failed": bad}),
+          flush=True)
+    if run["fallbacks"]:
+        return f"phase 11: vmap ran {run['fallbacks']} through its per-lane fallback", None, None
+    if launches != want or run["launches_eager"] != want:
+        return (f"phase 11: batched R+W launch counts {launches} (eager "
+                f"{run['launches_eager']}), expected {want}"), None, None
+    if not (run["graph_equals_eager"] and run["repeated_lanes_equal"]):
+        return (f"phase 11: graph equals eager {run['graph_equals_eager']}, repeated lanes "
+                f"equal {run['repeated_lanes_equal']}"), None, None
+    if bad:
+        return f"phase 11: {bad}", None, None
+
+    # ---- K2 on the raster table and K5 alone, batched, on the recorded lanes
+    rw_bounds = {"minimize_vel": bounds["minimize_vel"], "reg_ekf": bounds["reg_ekf_alone"]}
+    err, entries = batched_kernels(torch, kernels, run["recorded"], rw_bounds, card,
+                                   names=tuple(RW_BATCH_LAUNCHERS), label="batched R+W",
+                                   phase=11)
+    if err:
+        return err, None, None
+
+    # ---- the device's view of a batched R+W step, and of an unbatched one
+    prof = {}
+    for label, argv in (("batched", ["--vio", "--graph", "--matcher", "walk", "--batch",
+                                     str(BATCH), "--frames", "8"]),
+                        ("unbatched", ["--vio", "--graph", "--matcher", "walk", "--frames",
+                                       "8"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            prof[label] = profile_main(argv)
+    device_ms = {name: {"device_ms_per_batched_step":
+                        prof["batched"]["ported_kernels_ms_per_frame"][name],
+                        "device_ms_unbatched": prof["unbatched"]["ported_kernels_ms_per_frame"][name],
+                        "bound_ms_x8": BATCH * rw_bounds[name][0],
+                        "bound_by": rw_bounds[name][1]} for name in RW_BATCH_LAUNCHERS}
+    print(json.dumps({"check": "profile_step --vio --graph --matcher walk [--batch 8], one "
+                               "replay a (batched) frame", "card": card,
+                      **{label: {k: p[k] for k in ("wall_ms_per_frame",
+                                                   "device_busy_ms_per_frame",
+                                                   "device_idle_share",
+                                                   "kernel_launches_per_frame",
+                                                   "ported_kernels_ms_per_frame",
+                                                   "ported_kernels_launches_per_frame",
+                                                   "host_syncs_per_frame")}
+                         | ({"frames_per_s_all_lanes": p["frames_per_s_all_lanes"]}
+                            if "frames_per_s_all_lanes" in p else {})
+                         for label, p in prof.items()},
+                      "batched_kernels_device_ms": device_ms}), flush=True)
+    print(json.dumps({"phase": 11, "seconds": time.perf_counter() - t_phase}), flush=True)
     return None, entries, launches
 
 
@@ -2385,6 +2577,11 @@ def smoke(np, torch, jobs) -> int:
     if err:
         return fail(err)
 
+    # ---------------- phase 11: the reference-semantics step batched
+    err, rw_batched, rw_launches = phase11(np, torch, kernels, card, streams, b)
+    if err:
+        return fail(err)
+
     # each kernel's count on the path that runs it: the VIO slice, the loop
     # closure (att_field), the field tool (nn_field), the single-pass drive
     # (try_vel: the LM solve took its place on the other paths)
@@ -2402,12 +2599,15 @@ def smoke(np, torch, jobs) -> int:
     # the step's kernels with the lane axis, launched once a batched step on
     # the batched main path (the Cholesky inverse has no TPU kernel: its
     # batched line is phase 10's own)
-    for r in batched:
-        if r["kernel"] in REPLACES:
-            out.append(dict(name=r["name"], route="cuda", source=SOURCES[r["kernel"]],
-                            replaces=REPLACES[r["kernel"]], launches=blaunches[r["kernel"]],
-                            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+    for rows, counts in ((batched, blaunches), (rw_batched, rw_launches)):
+        for r in rows:
+            if r["kernel"] in REPLACES:
+                out.append(dict(name=r["name"], route="cuda", source=SOURCES[r["kernel"]],
+                                replaces=REPLACES[r["kernel"]], launches=counts[r["kernel"]],
+                                max_abs_err=r["max_abs_err"],
+                                max_abs_err_vs_b_launches=r["max_abs_err_vs_b_launches"],
+                                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                                bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

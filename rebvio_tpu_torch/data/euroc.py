@@ -6,9 +6,10 @@ only:
     <root>/mav0/state_groundtruth_estimate0/data.csv   (optional)
 
 Timestamps go from ns to us (the reference works in us, image.hpp:19-22).
-Frames decode either in process (``_read_png_gray``: zlib and the five PNG
+Frames decode either in process (``_read_png_gray``: PIL where it imports,
+as the JAX package does, else ``_decode_png_numpy``, zlib and the five PNG
 row filters in numpy) or through the native prefetch ring
-(data/native_loader.py); both give uint8 frames, which the runner's staging
+(data/native_loader.py); all give uint8 frames, which the runner's staging
 ring carries to the device as they are.
 """
 
@@ -59,8 +60,23 @@ def _unfilter_row(ft: int, row: np.ndarray, prev: np.ndarray, ch: int) -> np.nda
 
 
 def _read_png_gray(path: str) -> np.ndarray:
+    """A PNG as uint8 [H, W] (EuRoC's images are 8-bit gray), as
+    rebvio_tpu/data/euroc.py:28-35 reads it: ``PIL.Image.open(path)
+    .convert("L")`` first (an RGB file gives its luma), and where PIL does
+    not import or fails on the file, ``_decode_png_numpy`` (an RGB file
+    gives its first channel)."""
+    try:
+        from PIL import Image
+
+        with Image.open(path) as im:
+            return np.asarray(im.convert("L"), dtype=np.uint8)
+    except (ImportError, OSError):      # no PIL; a file PIL cannot read
+        return _decode_png_numpy(path)
+
+
+def _decode_png_numpy(path: str) -> np.ndarray:
     """8-bit PNG (gray, gray+alpha, RGB or RGBA, not interlaced) -> its first
-    channel as uint8 [H, W] (EuRoC's images are 8-bit gray)."""
+    channel as uint8 [H, W], in numpy."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":

@@ -1,13 +1,39 @@
 """Small fixed-size linear algebra (rebvio_tpu/geometry/linalg.py): the
 adjugate 3x3 inverse, the unrolled Cholesky inverse (one CUDA launch on the
-card) and the pivot-free Gauss-Jordan solve with the reference's NaN
-semantics."""
+card), the pivot-free Gauss-Jordan solve with the reference's NaN
+semantics, the SVD solve; and ``lane_matmul``, the product whose lanes under
+vmap are the unbatched product's bit for bit."""
 
 from __future__ import annotations
 
 import torch
 
 from rebvio_tpu_torch.ops import kernels
+
+
+@torch.library.custom_op("rebvio::lane_matmul", mutates_args=())
+def lane_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``; under torch.func.vmap one product a lane
+    (``_lane_matmul_lanes``), so that a lane of the batched step
+    (parallel/batch.py) sums as the unbatched step does.  For the products
+    whose summation order moves the trajectory: the frontend's band
+    products and the refinement's Gram over all keylines."""
+    return a @ b
+
+
+@lane_matmul.register_vmap
+def _lane_matmul_lanes(info, in_dims, a, b):
+    """Each lane's product as the unbatched call makes it: the same shapes
+    and strides, so the same library kernel and summation order.  One
+    batched product sums in another order; on the card that moved ~1400 of
+    16000 keylines' subpixel positions a frame and 1.3e-5 rad of the first
+    estimate's rotation, and the pixel walk's integer steps turned that into
+    0.02 m of a lane's 120-frame trajectory (tools/lane_ab.py)."""
+    da, db = in_dims
+    a = a if da is None else a.movedim(da, 0)
+    b = b if db is None else b.movedim(db, 0)
+    return torch.stack([(a if da is None else a[i]) @ (b if db is None else b[i])
+                        for i in range(info.batch_size)]), 0
 
 
 def invert3(m: torch.Tensor) -> torch.Tensor:
@@ -81,11 +107,30 @@ def gj_inverse(m: torch.Tensor) -> torch.Tensor:
     return a[:, n:]
 
 
-def sym_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Direct solve for symmetric (near-)PD normal matrices with the
-    reference's NaN semantics: finite-but-singular input -> zeros,
-    non-finite input -> NaN propagates (linalg.sym_solve / gj_solve)."""
+def gj_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A^-1 b`` by the unrolled Gauss-Jordan inverse with the reference's
+    NaN semantics (linalg.gj_solve): finite-but-singular input -> zeros,
+    non-finite input -> NaN propagates."""
     x = (gj_inverse(A) @ b[:, None])[:, 0]
     inputs_finite = torch.isfinite(A).all() & torch.isfinite(b).all()
     singular = inputs_finite & ~torch.isfinite(x).all()
     return torch.where(singular, torch.zeros_like(x), x)
+
+
+def sym_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Direct solve for symmetric (near-)PD normal matrices
+    (linalg.sym_solve): ``gj_solve``, the path JAX takes at the sizes the
+    step solves (n <= 8)."""
+    return gj_solve(A, b)
+
+
+def svd_solve(A: torch.Tensor, b: torch.Tensor, rcond: float = 1e-9) -> torch.Tensor:
+    """Least squares by SVD with singular values under ``rcond`` times the
+    largest dropped (linalg.svd_solve, TooN::SVD::backsub).  Non-finite
+    ``A`` gives NaN, as JAX's SVD does (torch's refuses such input)."""
+    finite = torch.isfinite(A).all()
+    U, s, Vh = torch.linalg.svd(torch.where(torch.isfinite(A), A, 0.0), full_matrices=False)
+    cutoff = rcond * torch.max(s)
+    s_inv = torch.where(s > cutoff, 1.0 / torch.where(s > 0, s, 1.0), 0.0)
+    x = Vh.T @ (s_inv * (U.T @ b))
+    return torch.where(finite, x, torch.full_like(x, float("nan")))

@@ -682,9 +682,11 @@ def _launch_tube_match(kl, att, dyn, M2, g: TubeGeom) -> torch.Tensor:
     return out
 
 
-def tube_match_plain(kl, att, dyn, M2, g: TubeGeom) -> torch.Tensor:
-    """tube_match_pallas plus the probe projection and both gathers, as
-    [P, K] tensors."""
+def tube_probes(kl, att, dyn, M2, g: TubeGeom) -> torch.Tensor:
+    """Every probe of every keyline before the winner is chosen: ``[11, P,
+    K]`` rows (old keyline id, its rho, sigma_rho, rotated gradient x, y,
+    gradient norm, position x, y, matches, keyframe id, priority), the
+    priority 1e9 where a gate fails."""
     K = kl.shape[1]
     dev = kl.device
     (tx, ty, pi0x, pi0y, dq_min, dq_max, dq_rho, nt_eff, sigma2_t,
@@ -726,8 +728,15 @@ def tube_match_plain(kl, att, dyn, M2, g: TubeGeom) -> torch.Tensor:
     ok = valid & has & g_tube & g_win & g_ang & g_norm & g_depth
     prio = torch.abs(t_eff - dq_rho)
     prio = torch.where(ok & ~torch.isnan(prio), prio, 1e9)   # the kernel's strict < skips NaN
-    best = torch.argmin(prio, dim=0)        # first minimum: the first probe wins ties
-    payload = torch.stack([oid, rho_o, sr_o, gx_r, gy_r, gn_old, sx, sy, d[2], d[3], prio])
+    return torch.stack([oid, rho_o, sr_o, gx_r, gy_r, gn_old, sx, sy, d[2], d[3], prio])
+
+
+def tube_match_plain(kl, att, dyn, M2, g: TubeGeom) -> torch.Tensor:
+    """tube_match_pallas plus the probe projection and both gathers, as
+    [P, K] tensors (tube_probes), then each keyline's winning probe."""
+    K = kl.shape[1]
+    payload = tube_probes(kl, att, dyn, M2, g)
+    best = torch.argmin(payload[10], dim=0)  # first minimum: the first probe wins ties
     win = torch.gather(payload, 1, best[None, None, :].expand(11, 1, K))[:, 0]
     best_prio = win[10]
     found = best_prio < 1e9

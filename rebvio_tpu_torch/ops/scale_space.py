@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from rebvio_tpu_torch import resolve_device
+from rebvio_tpu_torch.geometry.linalg import lane_matmul
 
 
 def box_widths(sigma: float, n: int = 3) -> Tuple[List[int], float]:
@@ -101,12 +102,13 @@ class ScaleSpaceParams:
 
 def mxu_dot(a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
     """Band-operator product: f32, or bf16 operands with f32 accumulation
-    where the profile opts in (EdgeDetectorConfig.frontend_bf16)."""
+    where the profile opts in (EdgeDetectorConfig.frontend_bf16); one
+    product a lane under vmap (linalg.lane_matmul)."""
     if not bf16:
-        return a @ b
+        return lane_matmul(a, b)
     # bf16-rounded operands, f32 products and sums
     bf = torch.bfloat16
-    return a.to(bf).to(torch.float32) @ b.to(bf).to(torch.float32)
+    return lane_matmul(a.to(bf).to(torch.float32), b.to(bf).to(torch.float32))
 
 
 def build_scale_space(img: torch.Tensor, mats: FrontendMatrices, bf16: bool = False):
@@ -122,3 +124,12 @@ def build_scale_space(img: torch.Tensor, mats: FrontendMatrices, bf16: bool = Fa
     dy = pad(s0[2:, 1:W - 1] - s0[:-2, 1:W - 1], (1, 1, 1, 1))
     mag = dx * dx + dy * dy
     return s0, dog, mag
+
+
+def smooth(img: torch.Tensor, widths: Tuple[int, ...]) -> torch.Tensor:
+    """The standalone box cascade ``L @ img @ R`` for the given widths
+    (scale_space.smooth)."""
+    H, W = img.shape
+    L = torch.as_tensor(_cascade_ops(H, list(widths)), dtype=torch.float32, device=img.device)
+    R = torch.as_tensor(_cascade_ops(W, list(widths)).T, dtype=torch.float32, device=img.device)
+    return L @ img @ R

@@ -7,7 +7,7 @@ reaches K2 through ``raster_att``, a table in the attribute field's layout."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -27,6 +27,24 @@ def _use_mask(old: T.EdgeMap, sigma_rho_min) -> torch.Tensor:
     return use.to(f32)
 
 
+class TryVelOut(NamedTuple):
+    """One tryVel pass (tracker.TryVelOut)."""
+
+    score: torch.Tensor             # [] f32
+    JtJ: torch.Tensor               # [3, 3]
+    JtF: torch.Tensor               # [3]
+    residuals: torch.Tensor         # [K]
+    match_id_forward: torch.Tensor  # [K] int32
+
+
+def pack_target_fields(new: T.EdgeMap) -> torch.Tensor:
+    """``[K, 8]`` per-keyline fields of the field's map
+    (tracker.pack_target_fields): grad x, y, grad_norm, pos x, y, then three
+    zero columns."""
+    z = torch.zeros((new.kmax, 3), dtype=f32, device=new.pos.device)
+    return torch.cat([new.grad, new.grad_norm[:, None], new.pos, z], dim=-1)
+
+
 def raster_att(new: T.EdgeMap, field_ids: torch.Tensor) -> torch.Tensor:
     """The id-field route of tryVel (rebvio_tpu/ops/tracker.py:146-160,
     ``use_att=False``) as a ``[8, N]`` table in the attribute field's plane
@@ -37,8 +55,7 @@ def raster_att(new: T.EdgeMap, field_ids: torch.Tensor) -> torch.Tensor:
     zero.  Per cell this is exactly JAX's two chained gathers: a negative id
     never matches, so the clipped row it reads is never used."""
     N = field_ids.shape[0]
-    pack = torch.stack([new.grad[:, 0], new.grad[:, 1], new.grad_norm, new.pos[:, 0],
-                        new.pos[:, 1]])
+    pack = pack_target_fields(new)[:, :5].T
     return torch.cat([torch.zeros((2, N), dtype=f32, device=field_ids.device),
                       field_ids.to(f32)[None],
                       pack[:, torch.clamp(field_ids, 0, new.kmax - 1).to(torch.int64)]])
@@ -47,13 +64,13 @@ def raster_att(new: T.EdgeMap, field_ids: torch.Tensor) -> torch.Tensor:
 def try_vel(old: T.EdgeMap, att: torch.Tensor, vel, sigma_rho_min, residuals,
             cfg: CoreConfig, cam: CameraConfig, field_scale: int = 1):
     """One residual/Jacobian pass of the translation tracker (core.cpp:78-148)
-    against the new map's ``[8, N]`` attribute field.  Returns (score, JtJ,
-    JtF, residuals, match_id_forward)."""
+    against the new map's ``[8, N]`` attribute field.  Returns a TryVelOut
+    (score, JtJ, JtF, residuals, match_id_forward)."""
     H, W = old.kl_id_img.shape
     geom = _try_vel_geom(H, W, field_scale, cfg, cam)
-    return kernels.try_vel(old.pos_img.contiguous(), old.rho, old.sigma_rho,
-                           old.grad.contiguous(), _use_mask(old, sigma_rho_min), residuals,
-                           vel, att, geom)
+    return TryVelOut(*kernels.try_vel(old.pos_img.contiguous(), old.rho, old.sigma_rho,
+                                      old.grad.contiguous(), _use_mask(old, sigma_rho_min),
+                                      residuals, vel, att, geom))
 
 
 def _try_vel_geom(H, W, field_scale, cfg: CoreConfig, cam: CameraConfig):
@@ -120,7 +137,7 @@ def ext_rot_vel(new: T.EdgeMap, vel: torch.Tensor, cfg: CoreConfig,
     phi = torch.where(m[:, None], phi * scale[:, None], 0.0)
     Y = torch.where(m, Y * scale, 0.0)
     A = torch.cat([phi, Y[:, None]], dim=-1)
-    G = A.T @ A
+    G = linalg.lane_matmul(A.T, A)
     JtJ = G[:6, :6]
     JtF = G[:6, 6]
     return linalg.sym_solve(JtJ, JtF), JtJ

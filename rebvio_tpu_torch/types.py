@@ -119,6 +119,16 @@ class ImuFrameData(_TensorTree):
     dt_interval: torch.Tensor  # [] f32
 
 
+def empty_imu_frame(sample_max: int, device="cuda") -> ImuFrameData:
+    """An IMU window with no sample (types.empty_imu_frame)."""
+    z = dict(device=resolve_device(device))
+    return ImuFrameData(gyro=torch.zeros((sample_max, 3), dtype=f32, **z),
+                        acc=torch.zeros((sample_max, 3), dtype=f32, **z),
+                        dt=torch.zeros((sample_max,), dtype=f32, **z),
+                        n=torch.zeros((), dtype=i32, **z),
+                        dt_interval=torch.zeros((), dtype=f32, **z))
+
+
 @dataclasses.dataclass
 class IntegratedImu(_TensorTree):
     """Result of integrating one inter-frame IMU buffer (imu.hpp:80-94)."""

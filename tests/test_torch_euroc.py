@@ -1,7 +1,8 @@
 """EuRoC input of the port: ``data/euroc.py`` against the JAX package's
 ``euroc.load`` field by field on an ASL tree written by
 tests/test_native_loader.py's writers, the in-process PNG decoder on every
-row filter, the native prefetch ring (built from native/loader.cpp into
+row filter, the reader against JAX's with PIL and with PIL blocked, the
+native prefetch ring (built from native/loader.cpp into
 build/rebvio_loader/) against that decoder, and the CLI's ``--dataset
 euroc`` against ``VioRunner(undistort=True)`` on the same uint8 frames and
 IMU, bit for bit."""
@@ -85,9 +86,52 @@ def test_read_png_gray_filters(tmp_path, filters):
     img[5:9] = 255                         # flat rows: the predictors' wrap-around
     path = str(tmp_path / "f.png")
     write_png_gray(path, img, filters)
-    got = teuroc._read_png_gray(path)
-    assert got.dtype == np.uint8
-    np.testing.assert_array_equal(got, img)
+    for read in (teuroc._read_png_gray, teuroc._decode_png_numpy):
+        got = read(path)
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, img)
+
+
+@pytest.fixture(scope="module")
+def five_filter_tree(tmp_path_factory):
+    """tests/torch_asl.py's ASL tree of the small stream, its rows cycling
+    through the five PNG filters, and one RGB file."""
+    from torch_asl import write_asl_tree
+
+    pytest.importorskip("PIL.Image")
+    root = tmp_path_factory.mktemp("asl5")
+    seq = jsyn.generate(JCamera(**SMALL_CAMERA), n_frames=4, seed=1)
+    frames = [np.clip(np.asarray(im), 0, 255).astype(np.uint8) for im in seq.images]
+    write_asl_tree(root, frames, seq, len(frames))
+    rgb = str(root / "rgb.png")
+    write_png_gray(rgb, np.random.RandomState(6).randint(0, 256, (17, 23, 3)).astype(np.uint8),
+                   PNG_FILTERS)
+    return sorted(str(p) for p in (root / "mav0" / "cam0" / "data").glob("*.png")), rgb
+
+
+@pytest.mark.parametrize("pil", [True, False], ids=["PIL", "PIL-blocked"])
+def test_read_png_gray_matches_jax(five_filter_tree, monkeypatch, pil):
+    """The port's reader is JAX's, bit for bit, with PIL (luma of an RGB
+    file) and with PIL's import blocked (the numpy decoders: an RGB file's
+    first channel)."""
+    grays, rgb = five_filter_tree
+    if not pil:
+        monkeypatch.setitem(sys.modules, "PIL", None)
+    for p in grays + [rgb]:
+        got, want = teuroc._read_png_gray(p), jeuroc._read_png_gray(p)
+        assert got.dtype == want.dtype == np.uint8
+        np.testing.assert_array_equal(got, want, err_msg=p)
+    channel0 = teuroc._decode_png_numpy(rgb)
+    assert np.array_equal(teuroc._read_png_gray(rgb), channel0) != pil
+
+
+def test_numpy_decoder_equals_pil_on_gray(five_filter_tree):
+    from PIL import Image
+
+    grays, _ = five_filter_tree
+    for p in grays:
+        with Image.open(p) as im:
+            np.testing.assert_array_equal(teuroc._decode_png_numpy(p), np.asarray(im))
 
 
 def test_native_loader_matches_python_decoder(tmp_path):

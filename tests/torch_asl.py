@@ -1,5 +1,5 @@
 """Writers of EuRoC's ASL format for the port's tests and chip_smoke.py:
-8-bit grayscale PNGs with any of the five row filters, and an ASL tree
+8-bit grayscale (and RGB) PNGs with any of the five row filters, and an ASL tree
 (mav0/cam0 PNGs and data.csv, imu0, the ground truth) of a synthetic
 sequence.  numpy and the standard library only: no JAX, no torch."""
 
@@ -21,17 +21,18 @@ def _paeth(a, b, c):
 
 
 def write_png_gray(path, img: np.ndarray, filters=0, level: int = 6):
-    """8-bit grayscale PNG of ``img`` [H, W] uint8: ``filters`` one row
-    filter type for every row, or a sequence cycled over the rows.  Every
-    predictor is taken from the image itself (the decoded bytes), so the
-    rows are encoded at once."""
-    H, W = img.shape
+    """8-bit grayscale PNG of ``img`` [H, W] uint8 (an RGB one of [H, W, 3]):
+    ``filters`` one row filter type for every row, or a sequence cycled
+    over the rows.  Every predictor is taken from the image itself (the
+    decoded bytes), so the rows are encoded at once."""
+    H, W = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
     kinds = np.array([filters] if isinstance(filters, int) else list(filters))
     ft = kinds[np.arange(H) % len(kinds)][:, None]
-    x = img.astype(np.int64)
-    left = np.pad(x, ((0, 0), (1, 0)))[:, :-1]
+    x = img.reshape(H, W * ch).astype(np.int64)
+    left = np.pad(x, ((0, 0), (ch, 0)))[:, :-ch]
     up = np.pad(x, ((1, 0), (0, 0)))[:-1]
-    upleft = np.pad(x, ((1, 0), (1, 0)))[:-1, :-1]
+    upleft = np.pad(x, ((1, 0), (ch, 0)))[:-1, :-ch]
     pred = np.select([ft == 1, ft == 2, ft == 3, ft == 4],
                      [left, up, (left + up) >> 1, _paeth(left, up, upleft)], 0)
     raw = np.hstack([ft, (x - pred) % 256]).astype(np.uint8).tobytes()
@@ -42,7 +43,7 @@ def write_png_gray(path, img: np.ndarray, filters=0, level: int = 6):
 
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0)))
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, {1: 0, 3: 2}[ch], 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw, level)))
         f.write(chunk(b"IEND", b""))
 
