@@ -13,22 +13,27 @@ and eight sequences batched in lockstep, with either step.
 Phases (any failure exits non-zero):
   1. device: card name and power limit, torch/CUDA versions, kernel build;
   2. kernels: each CUDA kernel of the paths (att_flood, try_vel,
-     minimize_vel, tube_match, reg_ekf, estimate_bias, att_field, nn_field)
-     against its plain PyTorch version on the card, on inputs taken from the
-     paths at their shapes (a VO frame pair and its post-step map;
-     att_flood also at search ranges 5 and 40 and tube_match at 4 probes;
-     reg_ekf as the step's fused stage match_reg_ekf (the
+     minimize_vel, tube_match, reg_ekf, reg_ekf_alone, estimate_bias,
+     att_field, nn_field) against its plain PyTorch version on the card, on
+     inputs taken from the paths at their shapes (a VO frame pair and its
+     post-step map; att_flood also at search ranges 5 and 40 and tube_match
+     at 4 probes; reg_ekf as the step's fused stage match_reg_ekf (the
      matcher's tail, the gate, the depth update) on frame 1's match, a
-     random case, a forced failure (threshold above klm) and a NaN velocity,
-     and the depth update alone on the matched map; nn_field at search
+     random case, a forced failure (threshold above klm) and a NaN velocity;
+     reg_ekf_alone, K5 alone in one launch (kernels.reg_ekf), on the matched
+     map, a random case and the walk-matched map below, each also over 8
+     lanes under torch.func.vmap against 8 one-lane calls bit for bit;
+     att_field, K1b seeding and flooding in one launch, also at the fast
+     profile's 8192 keylines and on an empty table; nn_field at search
      ranges 5, 20 and 40 on the field and on the full-resolution 480x752 one;
      estimate_bias at the first frame the SAB filter is engaged; the fused LM
      solve minimize_vel with every iteration's gain and accept flag, launched
      twice for bit-identity) plus seeded random cases
      (for the two scatter-seeded fields: several keylines per cell, gated-out
      keylines on top of kept ones, keylines outside the field), with its
-     time, the plain version's time and its bound; the seeding's winner
-     plane against the plain scatter-max; and the scatter-seeded field
+     time between events, its device time under torch.profiler, the plain
+     version's time and its bound; K7's seeding winner plane against the
+     plain scatter-max; and the scatter-seeded field
      (att_field) against the dense-seeded one (att_flood) on the detector's
      own map; frame 1's seed_stack_dense -> att_flood -> tube_match -> the
      fused depth stage (matching.match_and_update_depth) under
@@ -72,7 +77,8 @@ Phases (any failure exits non-zero):
      and nn_field against their plain versions on a stored keyframe map and
      minimize_vel against its plain version on one candidate pair;
   6. field tool: python -m rebvio_tpu_torch.tools.jfa_ab's main (nn_field,
-     att_field and att_flood timed at the fast profile), counters as in 3;
+     att_field and att_flood timed at the fast profile), counters as in 3
+     (att_field one launch a field: K1's flood is not launched for it);
   7. the reference binary's other goldens through the graphed runner
      (tests/test_reference_anchor.py's bounds): seed 1, rot18, seed 0 over
      300 frames, noise (seed 2) and blur (seed 3) at the parity profile;
@@ -86,8 +92,8 @@ Phases (any failure exits non-zero):
   8. the reference-semantics step, PipelineConfig(df_mode="raster",
      matcher="walk"): VO over phase 3's 24 frames and VIO over phase 4's
      120, each eager, one graph a frame and chunks of graphs (bit-identical,
-     same launch counts: K2 on the raster table, K5 alone after the walk,
-     K3 on VIO), plus the pipelined chunk (the threshold held for the
+     same launch counts: K2 on the raster table, K5 alone (reg_ekf_alone)
+     after the walk, K3 on VIO), plus the pipelined chunk (the threshold held for the
      chunk), eager and graphed, bit-identical with the same launch counts;
      its deviation from the exact chunk is reported.  Held against the
      committed JAX goldens (tests/data/torch_golden_rw_vo_euroc_seed0_24.txt,
@@ -147,7 +153,7 @@ Phases (any failure exits non-zero):
      matcher="walk"), B = 8 lanes: phase 10's eight streams through
      run_batched, eager (its steps under set_sync_debug_mode("error")) and
      one CUDA graph a batched step, bit-identical, counters as in 3 (K2 on
-     the raster table, K5 alone and K3 one call a batched step,
+     the raster table, K5 alone (one launch) and K3 one call a batched step,
      chol_inverse three); no op through vmap's per-lane fallback; lanes 5-7
      equal lanes 0-2 bit for bit; each lane within phase 10's lane bounds of
      its stream's unbatched R+W graphed run (the five run here); the seed-0
@@ -325,6 +331,8 @@ REPLACES = {
     "minimize_vel": "rebvio_tpu/ops/pallas_kernels.py:314",
     "tube_match": "rebvio_tpu/ops/pallas_kernels.py:921",
     "reg_ekf": "rebvio_tpu/ops/pallas_kernels.py:422",
+    # K5 alone, the reference-semantics step's depth update (its own launch)
+    "reg_ekf_alone": "rebvio_tpu/ops/pallas_kernels.py:422",
     "estimate_bias": "rebvio_tpu/ops/pallas_kernels.py:720",
     "att_field": "rebvio_tpu/ops/pallas_kernels.py:120",
     "nn_field": "rebvio_tpu/ops/pallas_kernels.py:48",
@@ -334,17 +342,21 @@ REPLACES = {
 # of the tube matcher (their kernels repeat the plain arithmetic op for op)
 EXACT = {"att_flood": {0: (None,)}, "try_vel": {4: (None,)}, "minimize_vel": {5: (None,)},
          "tube_match": {0: (None,)},
-         "reg_ekf": {}, "estimate_bias": {}, "att_field": {0: (None,)}, "nn_field": {0: (None,)},
+         "reg_ekf": {}, "reg_ekf_alone": {}, "estimate_bias": {}, "att_field": {0: (None,)},
+         "nn_field": {0: (None,)},
          # the fused stage: match ids, match counts, keyframe ids, klm, failed
          "match_reg_ekf": {i: (None,) for i in (2, 3, 7, 8, 9)}}
+# the wrapper (ops/kernels.py) of each name that is not its own
+WRAPPER = {"reg_ekf_alone": "reg_ekf"}
 SOURCES = {
     "att_flood": "rebvio_tpu_torch/csrc/flood.cu",
     "try_vel": "rebvio_tpu_torch/csrc/try_vel.cu",
     "minimize_vel": "rebvio_tpu_torch/csrc/try_vel.cu",
     "tube_match": "rebvio_tpu_torch/csrc/tube_match.cu",
     "reg_ekf": "rebvio_tpu_torch/csrc/reg_ekf.cu",
+    "reg_ekf_alone": "rebvio_tpu_torch/csrc/reg_ekf.cu",
     "estimate_bias": "rebvio_tpu_torch/csrc/sab.cu",
-    "att_field": "rebvio_tpu_torch/csrc/seed_scatter.cu",    # then flood.cu's flood
+    "att_field": "rebvio_tpu_torch/csrc/flood.cu",           # seeding and flood, one launch
     "nn_field": "rebvio_tpu_torch/csrc/nn_flood.cu",         # seeded by seed_scatter.cu
 }
 
@@ -359,7 +371,8 @@ SOURCES = {
 # frame and test_sab.py's trials; 1e-4); att_field repeats its plain version's
 # arithmetic op for op (1e-6; 0 is expected) and nn_field's output is ids
 TOL_REL = {"att_flood": 1e-6, "try_vel": 1e-4, "tube_match": 1e-6, "reg_ekf": 1e-6,
-           "estimate_bias": 1e-4, "att_field": 1e-6, "nn_field": 0.0, "match_reg_ekf": 1e-6}
+           "reg_ekf_alone": 1e-6, "estimate_bias": 1e-4, "att_field": 1e-6, "nn_field": 0.0,
+           "match_reg_ekf": 1e-6}
 # minimize_vel against minimize_vel_plain: 1 + iterations dependent passes, each
 # with Gram sums of 16000 terms in another order (4.3e-6 relative per pass).
 # Every accept flag must agree, unless the first that differs sits on a trial
@@ -634,6 +647,44 @@ def chol_gap(torch, got, want):
     d = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
     scale = float(want[fin].abs().max()) if bool(fin.any()) else 1.0
     return same_mask, d, scale
+
+
+def alone_lanes(torch, kernels, label: str, args):
+    """K5 alone (kernels.reg_ekf) under torch.func.vmap over BATCH lanes made
+    from one of phase 2's cases (lane b: rho times 1 + b/16, vel times 1 -
+    b/32), one launch for all: against BATCH one-lane calls bit for bit, and
+    against the plain version under vmap at TOL_REL["reg_ekf_alone"].
+    Returns (record, error or None)."""
+    *ts, p = args
+    f = torch.arange(BATCH, dtype=torch.float32, device=ts[0].device)
+    lanes = [t.expand(BATCH, *t.shape).clone() for t in ts]
+    lanes[0] = lanes[0] * (1 + f / 16)[:, None]
+    lanes[12] = lanes[12] * (1 - f / 32)[:, None]
+
+    def fn(*t):
+        return kernels.reg_ekf(*t, p)
+
+    got = torch.func.vmap(fn)(*lanes)
+    singles = [fn(*(t[b] for t in lanes)) for b in range(BATCH)]
+    ref = torch.func.vmap(lambda *t: kernels.reg_ekf_plain(*t, p))(*lanes)
+    torch.cuda.synchronize()
+    same = all(bits_equal(torch, g[b], s[i]) for i, g in enumerate(got)
+               for b, s in enumerate(singles))
+    worst_abs, worst_rel, error = 0.0, 0.0, None
+    for b in range(BATCH):
+        gap_abs, gap_rel, error = plain_gap(torch, "reg_ekf_alone", f"{label}, lane {b}",
+                                            [o[b] for o in got], [o[b] for o in ref], {})
+        if error:
+            break
+        worst_abs, worst_rel = max(worst_abs, gap_abs), max(worst_rel, gap_rel)
+    tol = TOL_REL["reg_ekf_alone"]
+    if error is None and worst_rel > tol:
+        error = f"reg_ekf_alone ({label}, {BATCH} lanes): relative error {worst_rel:.3g} > {tol}"
+    if error is None and not same:
+        error = f"reg_ekf_alone ({label}): {BATCH} lanes under vmap differ from one-lane calls"
+    return ({"check": f"reg_ekf_alone under vmap, {BATCH} lanes, one launch: {label}",
+             "equals_b_unbatched_launches": same, "max_abs_err_vs_plain": worst_abs,
+             "max_rel_err_vs_plain": worst_rel, "tol_rel": tol}, error)
 
 
 def vio_golden_check(np, ev, res, K_fin, g_fin, path, bounds, n: int):
@@ -1031,7 +1082,7 @@ BATCH_LAUNCHERS = {"att_flood": "_launch_att_flood", "minimize_vel": "_launch_mi
 # the name of each batched kernel's test in phase 2 (EXACT, TOL_REL): K5 as
 # the step runs it, the fused stage
 BATCH_GAP = {"att_flood": "att_flood", "tube_match": "tube_match", "reg_ekf": "match_reg_ekf",
-             "estimate_bias": "estimate_bias"}
+             "reg_ekf_alone": "reg_ekf_alone", "estimate_bias": "estimate_bias"}
 EUROC_N = N_VIO
 
 
@@ -1062,6 +1113,10 @@ def lane_wrappers(kernels, linalg, name: str, args, debug: bool = False):
 
         return (list(ins), lambda *t: kernels.match_reg_ekf(*order(t)),
                 lambda *t: kernels.match_reg_ekf_plain(*order(t)))
+    if name == "reg_ekf_alone":     # K5 alone: the 13 planes of kernels.reg_ekf, its params
+        ins, p = args
+        return (list(ins), lambda *t: kernels.reg_ekf(*t, p),
+                lambda *t: kernels.reg_ekf_plain(*t, p))
     if name == "estimate_bias":
         ins, iters = args
         return (list(ins), lambda *t: kernels.estimate_bias(*t, iters),
@@ -1474,7 +1529,7 @@ def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, 
 # against its stream's unbatched R+W graphed run: phase 10's lane bounds;
 # the seed-0 lanes against phase 8's R+W VIO golden at phase 8's bounds
 # (VIO_BOUNDS) and the reference binary's (REF_ATE_BOUND_M).
-RW_BATCH_LAUNCHERS = {"minimize_vel": "_launch_minimize_vel", "reg_ekf": "_launch_match_reg_ekf"}
+RW_BATCH_LAUNCHERS = {"minimize_vel": "_launch_minimize_vel", "reg_ekf_alone": "_launch_reg_ekf"}
 BATCH_STEP_LIMIT_MS = 50.0      # EuRoC's 20 Hz for every lane
 
 
@@ -1510,7 +1565,7 @@ def phase11(np, torch, kernels, card, streams, bounds):
     if isinstance(run, str):
         return run, None, None
     res, st, launches = run["res"], run["state"], run["launches"]
-    want = {**{k: 0 for k in kernels.LAUNCHES}, "minimize_vel": n, "reg_ekf": n,
+    want = {**{k: 0 for k in kernels.LAUNCHES}, "minimize_vel": n, "reg_ekf_alone": n,
             "estimate_bias": n, "chol_inverse": 3 * n}
     lanes, bad = [], []
     for b, (name, r) in enumerate(zip(BATCH_LANES, res)):
@@ -1566,7 +1621,7 @@ def phase11(np, torch, kernels, card, streams, bounds):
         return f"phase 11: {bad}", None, None
 
     # ---- K2 on the raster table and K5 alone, batched, on the recorded lanes
-    rw_bounds = {"minimize_vel": bounds["minimize_vel"], "reg_ekf": bounds["reg_ekf_alone"]}
+    rw_bounds = {name: bounds[name] for name in RW_BATCH_LAUNCHERS}
     err, entries = batched_kernels(torch, kernels, run["recorded"], rw_bounds, card,
                                    names=tuple(RW_BATCH_LAUNCHERS), label="batched R+W",
                                    phase=11)
@@ -1832,12 +1887,12 @@ def smoke(np, torch, jobs) -> int:
     reg_in = (matched[0], matched[1], mre[3], mre[4], mre[5], mre[6], mre[7], matched[2],
               mre[11], matched[4], matched[5], matched[6], mre[15],
               kernels.RegEkfParams(*mre[18][:4]))
-    cases["reg_ekf"] = [("frame 1, matched map", reg_in)]
+    cases["reg_ekf_alone"] = [("frame 1, matched map", reg_in)]
     a = list(reg_in)
     a[0] = on_dev(rng.uniform(0.05, 3.0, K).astype(np.float32))     # rho
     a[12] = on_dev(rng.normal(0, 0.02, 3).astype(np.float32))      # vel
-    cases["reg_ekf"].append(("random depths/vel", tuple(a)))
-    cases["reg_ekf"].append(("walk-matched map (R+W), frame 1", rw_reg))
+    cases["reg_ekf_alone"].append(("random depths/vel", tuple(a)))
+    cases["reg_ekf_alone"].append(("walk-matched map (R+W), frame 1", rw_reg))
     cases["estimate_bias"] += sab_random_cases(dev, kernels, recorder, originals, captured,
                                                vcfg.imu.sab_iterations)
 
@@ -1871,7 +1926,16 @@ def smoke(np, torch, jobs) -> int:
         field_cases(f"random table {trial}", on_dev(p.astype(np.float32)),
                     on_dev(rng.normal(0, 100, (K, 2)).astype(np.float32)),
                     on_dev(rng.rand(K) < 0.9))
-    # the seeding's winner plane against the plain scatter-max, exact
+    # K1b also at the fast profile's table size, and on an empty table
+    fk = fast_profile().detector.keylines_max
+    cases["att_field"].append((f"fast profile: frame 1 map's first {fk} keylines",
+                               (map1.pos[:fk].contiguous(), map1.grad[:fk].contiguous(),
+                                gate1[:fk].contiguous(), sr_img, H, W, fs)))
+    cases["att_field"].append(("empty table", (map1.pos[:0].contiguous(),
+                                               map1.grad[:0].contiguous(), gate1[:0], sr_img,
+                                               H, W, fs)))
+    # K7's seeding (csrc/seed_scatter.cu): the winner plane against the plain
+    # scatter-max, exact
     lib = _build.load()
     for label, (pos, _grad, use, *_rest) in cases["att_field"]:
         got = kernels._seed_winner(lib, pos, use, frows, fcols, 1.0 / fs)
@@ -1883,7 +1947,7 @@ def smoke(np, torch, jobs) -> int:
                           "keylines_in_field": inside, "equal": bool(torch.equal(got, want))}))
         if not torch.equal(got, want):
             return fail(f"seed winner plane differs from the plain scatter-max ({label})")
-        if label != "frame 1 map" and not kept < inside:
+        if label.startswith("random table") and not kept < inside:
             return fail(f"random table {label} forced no collision")
     # the scatter-seeded field against the dense-seeded one on the detector's
     # map of frame 1: equal wherever no keyline sits between the two gates
@@ -1905,7 +1969,7 @@ def smoke(np, torch, jobs) -> int:
         return fail("the scatter-seeded field differs from the dense-seeded one")
 
     plain = {"att_flood": kernels.att_flood_plain, "try_vel": kernels.try_vel_plain,
-             "tube_match": kernels.tube_match_plain, "reg_ekf": kernels.reg_ekf_plain,
+             "tube_match": kernels.tube_match_plain, "reg_ekf_alone": kernels.reg_ekf_plain,
              "estimate_bias": kernels.estimate_bias_plain,
              "att_field": kernels.att_field_plain, "nn_field": kernels.nn_field_plain,
              "match_reg_ekf": kernels.match_reg_ekf_plain}
@@ -1914,11 +1978,13 @@ def smoke(np, torch, jobs) -> int:
         return list(out) if isinstance(out, (tuple, list)) else [out]
 
     report = {}
-    # minimize_vel has its own comparison, below; reg_ekf runs alone and fused
-    for name in [n for n in REPLACES if n != "minimize_vel"] + ["match_reg_ekf"]:
+    # minimize_vel has its own comparison, below; K5 runs alone and fused
+    # (match_reg_ekf: its line is "reg_ekf")
+    for name in [n for n in REPLACES if n not in ("minimize_vel", "reg_ekf")] + ["match_reg_ekf"]:
         worst_abs, worst_rel, exact = 0.0, 0.0, {}
+        wrapper = getattr(kernels, WRAPPER.get(name, name))
         for label, args in cases[name]:
-            got = as_list(getattr(kernels, name)(*args))
+            got = as_list(wrapper(*args))
             ref = as_list(plain[name](*args))
             torch.cuda.synchronize()
             gap_abs, gap_rel, error = plain_gap(torch, name, label, got, ref, exact)
@@ -1929,10 +1995,20 @@ def smoke(np, torch, jobs) -> int:
         if worst_rel > tol:
             return fail(f"{name}: max relative error {worst_rel:.3g} above {tol}")
         args = cases[name][0][1]
-        kern_ms = median_ms(torch, lambda: getattr(kernels, name)(*args))
+        kern_ms = median_ms(torch, lambda: wrapper(*args))
         plain_ms = median_ms(torch, lambda: plain[name](*args))
+        dev_us, dev_ops = jfa_ab.device_us(lambda: wrapper(*args))
         report[name] = dict(max_abs_err=worst_abs, max_rel_err=worst_rel, tol_rel=tol,
-                            exact=exact, ms=kern_ms, plain_ms=plain_ms)
+                            exact=exact, ms=kern_ms, plain_ms=plain_ms, device_ms=dev_us / 1e3,
+                            device_ops=dev_ops)
+    # K5 alone over BATCH lanes under vmap, one launch: each case's lanes
+    # against BATCH one-lane calls bit for bit, and against the plain version
+    # under vmap
+    for label, args in cases["reg_ekf_alone"]:
+        rec, error = alone_lanes(torch, kernels, label, args)
+        print(json.dumps(rec), flush=True)
+        if error:
+            return fail(error)
     for m, info in kernels.NN_PLAN_INFO.items():
         print(json.dumps({"check": "nn_field cluster plan", "field_and_keylines": list(m),
                           "plan": info}))
@@ -1978,10 +2054,12 @@ def smoke(np, torch, jobs) -> int:
             return fail(error)
         worst_abs = max(worst_abs, rec["max_abs_err"])
     args = cases["minimize_vel"][0][1]
+    dev_us, dev_ops = jfa_ab.device_us(lambda: kernels.minimize_vel(*args))
     report["minimize_vel"] = dict(
         max_abs_err=worst_abs, tol=MV_TOL,
         ms=median_ms(torch, lambda: kernels.minimize_vel(*args)),
-        plain_ms=median_ms(torch, lambda: kernels.minimize_vel_plain(*args)))
+        plain_ms=median_ms(torch, lambda: kernels.minimize_vel_plain(*args)),
+        device_ms=dev_us / 1e3, device_ops=dev_ops)
 
     # the Cholesky inverse (no TPU kernel behind it: its own line, no row below)
     bad = torch.eye(6, device=dev)
@@ -2052,15 +2130,8 @@ def smoke(np, torch, jobs) -> int:
     # directions per step, each a distance (5 operations), a compare and the
     # gate's share
     b["nn_field"] = bound_ms(K * 9 + n * 4, steps * 8 * 7 * n + 6 * K)
-    # the step runs reg_ekf as the fused stage: its line carries that call,
-    # the depth update alone (nothing matched) has a line of its own
-    alone = report.pop("reg_ekf")
-    alone["bound_ms"], alone["bound_by"] = b["reg_ekf_alone"]
-    print(json.dumps({"kernel": "reg_ekf (alone: tracker.regularize_and_update_depth)",
-                      **alone}), flush=True)
+    # the fused stage's line is "reg_ekf" (its launch count's name)
     report["reg_ekf"] = report.pop("match_reg_ekf")
-    report["reg_ekf"]["max_abs_err"] = max(report["reg_ekf"]["max_abs_err"],
-                                           alone["max_abs_err"])
     for name in REPLACES:
         report[name]["bound_ms"], report[name]["bound_by"] = b[name]
         print(json.dumps({"kernel": name, **report[name]}), flush=True)
@@ -2102,7 +2173,8 @@ def smoke(np, torch, jobs) -> int:
     # Cholesky inverse per frame (the refinement's covariance); the estimate
     # runs on every frame, its result selected on the device
     want = {"att_flood": N_FRAMES, "try_vel": 0, "minimize_vel": N_FRAMES,
-            "tube_match": N_FRAMES, "reg_ekf": N_FRAMES, "estimate_bias": 0, "att_field": 0,
+            "tube_match": N_FRAMES, "reg_ekf": N_FRAMES, "reg_ekf_alone": 0,
+            "estimate_bias": 0, "att_field": 0,
             "nn_field": 0, "chol_inverse": N_FRAMES}
     if launches != want:
         return fail(f"launch counts {launches}, expected {want}")
@@ -2165,7 +2237,8 @@ def smoke(np, torch, jobs) -> int:
     est = N_VIO
     # chol_inverse: gyro-bias fusion, the refinement's covariance, the SAB prior
     want = {"att_flood": N_VIO, "try_vel": 0, "minimize_vel": est,
-            "tube_match": est, "reg_ekf": est, "estimate_bias": est, "att_field": 0,
+            "tube_match": est, "reg_ekf": est, "reg_ekf_alone": 0, "estimate_bias": est,
+            "att_field": 0,
             "nn_field": 0, "chol_inverse": 3 * est}
     if vlaunches != want or vmodes["launches"] != want:
         return fail(f"VIO launch counts {vlaunches}, expected {want}")
@@ -2335,10 +2408,10 @@ def smoke(np, torch, jobs) -> int:
         return fail("pose_graph.optimize gave another result on the same graph")
     hist = hist.cpu().numpy()
     n_pairs = len(cand)
-    want = {"att_flood": 2 * n_pairs, "att_field": 2 * n_pairs, "try_vel": 0,
+    want = {"att_flood": 0, "att_field": 2 * n_pairs, "try_vel": 0,    # K1b: one launch
             "minimize_vel": n_pairs * 4,        # four registration rounds a pair
-            "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0, "nn_field": 0,
-            "chol_inverse": 0}
+            "tube_match": 0, "reg_ekf": 0, "reg_ekf_alone": 0, "estimate_bias": 0,
+            "nn_field": 0, "chol_inverse": 0}
     if lcl != want or len(reg_log) != n_pairs:
         return fail(f"loop-closure launch counts {lcl}, expected {want} for {n_pairs} pairs")
 
@@ -2404,9 +2477,9 @@ def smoke(np, torch, jobs) -> int:
     torch.cuda.synchronize()
     tl = dict(kernels.LAUNCHES)
     calls = jfa_ab.CALLS + jfa_ab.WARM + jfa_ab.PROFILED
-    want = {"nn_field": calls, "att_field": calls, "att_flood": 2 * calls, "try_vel": 0,
-            "minimize_vel": 0, "tube_match": 0, "reg_ekf": 0, "estimate_bias": 0,
-            "chol_inverse": 0}
+    want = {"nn_field": calls, "att_field": calls, "att_flood": calls, "try_vel": 0,
+            "minimize_vel": 0, "tube_match": 0, "reg_ekf": 0, "reg_ekf_alone": 0,
+            "estimate_bias": 0, "chol_inverse": 0}
     print(json.dumps({"slice": "field tool, fast profile (8192 keylines, field 240x376)",
                       "us_per_call_events_host_device_and_activities": {k: list(v) for k, v in tool.items()},
                       "launches": tl}), flush=True)
@@ -2501,10 +2574,11 @@ def smoke(np, torch, jobs) -> int:
         n = len(sq.images)
         launches = modes["launches"]
         vio = c.use_imu
-        want = {**{k: 0 for k in launches}, "minimize_vel": n, "reg_ekf": n,
+        want = {**{k: 0 for k in launches}, "minimize_vel": n, "reg_ekf_alone": n,
                 "chol_inverse": 3 * n if vio else n, "estimate_bias": n if vio else 0}
         if launches != want:
             return fail(f"{label} launch counts {launches}, expected {want}")
+        rw_launches_graph = launches       # K5 alone's count on its path (the last, VIO)
         for mode, path in (("graph", golden), ("pipelined", pipe_golden)):
             res = modes[mode]
             if res.position.shape != (n, 3) or not np.isfinite(res.position).all():
@@ -2584,9 +2658,11 @@ def smoke(np, torch, jobs) -> int:
 
     # each kernel's count on the path that runs it: the VIO slice, the loop
     # closure (att_field), the field tool (nn_field), the single-pass drive
-    # (try_vel: the LM solve took its place on the other paths)
+    # (try_vel: the LM solve took its place on the other paths), the R+W VIO
+    # graph (K5 alone)
     path_launches = {**vlaunches, "att_field": lcl["att_field"], "nn_field": tl["nn_field"],
-                     "try_vel": pass_launches["try_vel"]}
+                     "try_vel": pass_launches["try_vel"],
+                     "reg_ekf_alone": rw_launches_graph["reg_ekf_alone"]}
     if not all(path_launches[name] > 0 for name in REPLACES):
         return fail(f"a kernel was launched no time on its path: {path_launches}")
     out = []
@@ -2595,7 +2671,8 @@ def smoke(np, torch, jobs) -> int:
         out.append(dict(name=name, route="cuda", source=SOURCES[name],
                         replaces=REPLACES[name], launches=path_launches[name],
                         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+                        device_ms=r["device_ms"]))
     # the step's kernels with the lane axis, launched once a batched step on
     # the batched main path (the Cholesky inverse has no TPU kernel: its
     # batched line is phase 10's own)

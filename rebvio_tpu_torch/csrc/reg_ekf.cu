@@ -1,5 +1,6 @@
 // K5: the depth stage -- the tube matcher's tail, the failure gate, depth
-// regularization and the inverse-depth EKF -- in one call.
+// regularization and the inverse-depth EKF -- in one call; and K5 alone
+// (regularization and the EKF on a matched map) in one launch.
 //
 // Replaces rebvio_tpu/ops/pallas_kernels.py::reg_ekf_pallas and the XLA
 // work the JAX step composes around it (rebvio_tpu/pipeline.py:227-253):
@@ -14,26 +15,35 @@
 // seed through R_tot and the perspective divide); klm = the found count;
 // fail_nan (a device flag) selects the unmatched map and klm 0; failed =
 // fail_nan | klm < min_matches; then the depth update on M where not
-// failed.  Outputs: the eight changed planes, klm, failed.  The depth update
-// alone (tracker.regularize_and_update_depth) is the same call with K4's
-// output all zero (nothing found), fail_nan false and min_matches 0.
+// failed.  Outputs: the eight changed planes, klm, failed.
+//
+// K5 alone (tracker.regularize_and_update_depth, after the pixel walk of
+// the reference-semantics step: rebvio_tpu/ops/tracker.py's reg_ekf_pallas
+// with its two neighbour gathers) is one launch of reg_ekf_alone: the same
+// per-keyline update (depth_update), its neighbours' depths read from the
+// map as given, no count, no gate; 13 planes in, rho and sigma_rho out.
 //
 // Bound on the H100: launch latency.  At 16000 keylines the least traffic
 // is K4's output (0.77 MB) and ~17 map planes read, the eight planes
 // written (~2.5 MB in all): ~0.7 us at 3.35 TB/s, below one launch.  What
 // the stage cost before was host work around a 3.6 us kernel: ~30 eager
 // operations for the tail and two host syncs (the NaN and count gates).
+// K5 alone reads 15 float planes and valid and writes two planes (~1.1 MB):
+// ~0.33 us.  It ran as the fused call with nothing matched, which
+// allocated an all-zero K4 output, eye(3) and a flag and launched both
+// phases: two launches and three fills a frame.  Its launch reads only its
+// own planes.
 //
-// Design: two launches from one C entry point, one thread per
-// keyline.  Phase A counts the found keylines (a warp ballot, then one
-// partial per block: no atomics and no buffer to zero); phase B sums the
-// partials in block order (every block, the same sum), applies the gate and
-// computes the keyline's outputs.  Regularization reads each neighbour's
+// Design of the fused stage: two launches from one C entry point, one
+// thread per keyline.  Phase A counts the found keylines (a warp ballot,
+// then one partial per block: no atomics and no buffer to zero); phase B
+// sums the partials in block order (every block, the same sum), applies the
+// gate and computes the keyline's outputs.  Regularization reads each neighbour's
 // POST-match depth, found[nb] ? tube rho[nb] : rho[nb]: phase B recomputes
 // it from K4's planes, so only the count crosses from A to B.  Every update
 // reads pre-pass values (the reference's two-phase Jacobi update).  One
 // cooperative launch with a grid sync between the phases gave the same
-// outputs bit for bit but cost more between events (PERF.md, PR 6).
+// outputs bit for bit but cost more between events (PERF.md).
 // The 3x3 product and divide of the seed are summed in a fixed order, as
 // the plain version writes them; --fmad=false keeps every product rounded.
 //
@@ -41,7 +51,8 @@
 // torch.func.vmap of the step hands it, as jax.vmap of a pallas_call adds a
 // grid axis): each slot's pointer is lane 0's and a byte stride takes it to
 // lane b; the partials, klm and failed are the lane's own.  A lane's
-// arithmetic and its count's order are those of a launch of its own.
+// arithmetic and its count's order are those of a launch of its own.  K5
+// alone takes its lanes the same way, one launch for all B.
 
 #include <cuda_runtime.h>
 
@@ -77,10 +88,11 @@ struct Params {
   float thr, q_abs2, pu2, fm, cx, cy;
 };
 
-// A keyline's (rho, sigma_rho) as regularization sees it: the post-match
-// map's (the winner's where K4 found one).
+// A keyline's (rho, sigma_rho) as regularization sees it: with kMatch the
+// post-match map's (the winner's where K4 found one), else the map's.
+template <bool kMatch>
 __device__ __forceinline__ void depth_of(const Params& p, int j, float& r, float& s) {
-  if (p.tube[j] > 0.5f) {
+  if (kMatch && p.tube[j] > 0.5f) {
     r = p.tube[2 * p.K + j];
     s = p.tube[3 * p.K + j];
   } else {
@@ -91,6 +103,7 @@ __device__ __forceinline__ void depth_of(const Params& p, int j, float& r, float
 
 // regularize_1iter then updateInverseDepthARLU for keyline k, whose own
 // (post-match) values are given; neighbours are read through depth_of.
+template <bool kMatch>
 __device__ void depth_update(const Params& p, int k, float rho0, float sr0, int mid,
                              float q0x, float q0y, float mgx, float mgy, float mgn,
                              float& rho_out, float& sr_out) {
@@ -102,8 +115,8 @@ __device__ void depth_update(const Params& p, int k, float rho0, float sr0, int 
   const int nx = min(max(inx, 0), K - 1);
   const int pv = min(max(ipv, 0), K - 1);
   float rn, sn, rp, sp;
-  depth_of(p, nx, rn, sn);
-  depth_of(p, pv, rp, sp);
+  depth_of<kMatch>(p, nx, rn, sn);
+  depth_of<kMatch>(p, pv, rp, sp);
   const float gnx = p.grad[2 * nx], gny = p.grad[2 * nx + 1], gnn = p.gnorm[nx];
   const float gpx = p.grad[2 * pv], gpy = p.grad[2 * pv + 1], gnp = p.gnorm[pv];
 
@@ -218,7 +231,7 @@ __device__ __forceinline__ void gate_and_depth(const Params& p) {
     mpy = p0y * sc;
   }
   float rho_o = rho, sr_o = sr;
-  if (!failed) depth_update(p, k, rho, sr, mid, mpx, mpy, mgx, mgy, mgn, rho_o, sr_o);
+  if (!failed) depth_update<true>(p, k, rho, sr, mid, mpx, mpy, mgx, mgy, mgn, rho_o, sr_o);
   p.rho_out[k] = rho_o;
   p.sr_out[k] = sr_o;
   p.mid_out[k] = mid;
@@ -271,6 +284,18 @@ __global__ void __launch_bounds__(kThreads) match_reg_ekf_gate(Launch L) {
   gate_and_depth(lane_params(L));
 }
 
+// K5 alone: only the depth update's slots and rho_out, sr_out are set.
+__global__ void __launch_bounds__(kThreads) reg_ekf_alone(Launch L) {
+  const Params p = lane_params(L);
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= p.K) return;
+  float r, s;
+  depth_update<false>(p, k, p.rho[k], p.sr[k], p.match_id[k], p.mpos[2 * k],
+                      p.mpos[2 * k + 1], p.mgrad[2 * k], p.mgrad[2 * k + 1], p.mgn[k], r, s);
+  p.rho_out[k] = r;
+  p.sr_out[k] = s;
+}
+
 }  // namespace
 
 // ptr: N_SLOTS device pointers in Slot order, of lane 0 of B; stride: the
@@ -299,5 +324,33 @@ extern "C" int rk_match_reg_ekf(void* const* ptr, const long long* stride, int B
   const int blocks = (K + kThreads - 1) / kThreads;
   match_reg_ekf_count<<<dim3(blocks, B), kThreads, 0, stream>>>(L);
   match_reg_ekf_gate<<<dim3(blocks, B), kThreads, 0, stream>>>(L);
+  return (int)cudaGetLastError();
+}
+
+// K5 alone.  ptr: the 13 inputs (rho .. vel, the first 13 slots of Slot
+// order) then rho_out and sigma_rho_out, of lane 0 of B; stride: each one's
+// byte stride from one lane to the next.  One launch.
+extern "C" int rk_reg_ekf(void* const* ptr, const long long* stride, int B, int K, float thr,
+                          float q_abs2, float pu2, float fm, void* stream_ptr) {
+  constexpr int kIn = VEL + 1, kArgs = kIn + 2;
+  if (K < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < kArgs; ++s)
+    if (ptr[s] == nullptr) return (int)cudaErrorInvalidValue;
+  Launch L{};                                   // every other slot null
+  for (int s = 0; s < kIn; ++s) {
+    L.ptr[s] = (const char*)ptr[s];
+    L.stride[s] = stride[s];
+  }
+  L.ptr[RHO_OUT] = (const char*)ptr[kIn];
+  L.stride[RHO_OUT] = stride[kIn];
+  L.ptr[SR_OUT] = (const char*)ptr[kIn + 1];
+  L.stride[SR_OUT] = stride[kIn + 1];
+  L.K = K;
+  L.thr = thr;
+  L.q_abs2 = q_abs2;
+  L.pu2 = pu2;
+  L.fm = fm;
+  const int blocks = (K + kThreads - 1) / kThreads;
+  reg_ekf_alone<<<dim3(blocks, B), kThreads, 0, (cudaStream_t)stream_ptr>>>(L);
   return (int)cudaGetLastError();
 }

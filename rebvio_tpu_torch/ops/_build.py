@@ -3,11 +3,12 @@ plain C interface and loads it with ctypes.
 
 The library is built at first use from the sources in the checkout into
 ``build/rebvio_kernels/`` (git-ignored), one ``nvcc`` per source, all
-started together, then linked.  ``--fmad=false`` keeps ``a*b + c`` as two
-rounded operations, as on the CPU: the flood's tie-breaks and the gates'
-thresholds then see the same float32 values as the plain versions.  The
-library file is named by a hash of the sources and flags, so a rebuilt
-checkout never loads a stale one.
+started together, then linked; the sources share ``csrc/*.cuh``.
+``--fmad=false`` keeps ``a*b + c`` as two rounded operations, as on the
+CPU: the flood's tie-breaks and the gates' thresholds then see the same
+float32 values as the plain versions.  The library file is named by a hash
+of the sources, the headers and the flags, so a rebuilt checkout never
+loads a stale one.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "rk_att_flood": [P, P, P, I, I, I, I, I, F, P, I, I, I, I, P],
     "rk_att_flood_max_blocks": [],
+    "rk_att_field": [P, P, P, I, F, P, P, I, I, I, I, I, F, P, I, I, I, I, P],
+    "rk_att_field_max_blocks": [],
     "rk_minimize_vel": [P] * 8 + [I] * 6 + [F] * 6 + [I] + [P] * 4 + [I, P],
     "rk_minimize_vel_blocks": [I],
     "rk_minimize_vel_max_blocks": [],
@@ -41,9 +44,9 @@ _SIGNATURES = {
     "rk_minimize_vel_items_max": [],
     "rk_tube_match": [P] * 4 + [I] * 7 + [F] * 3 + [P, P],
     "rk_match_reg_ekf": [P, P, I, I, I] + [F] * 6 + [P],
+    "rk_reg_ekf": [P, P, I, I] + [F] * 4 + [P],
     "rk_estimate_bias": [P] * 9 + [I] + [P] * 4 + [I, P],
     "rk_seed_winner": [P, P, I, F, I, I, P, P],
-    "rk_seed_stack": [P, P, P, F, I, I, I, P, P],
     "rk_nn_cluster_occupancy": [I] * 5,
     "rk_nn_cluster": [P] * 3 + [I] * 10 + [P],
     "rk_chol_inverse": [P, P, I, I, P],
@@ -66,8 +69,8 @@ def load():
     if _LIB is not None:
         return _LIB
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for path in [CSRC / name for name in SOURCES] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
     tag = h.hexdigest()[:16]
     so = BUILD_DIR / f"librebvio_kernels_{tag}.so"
     t0 = time.time()

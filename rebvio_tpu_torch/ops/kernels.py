@@ -8,21 +8,23 @@ launch counters.
 | try_vel     | csrc/try_vel.cu       | try_vel_math_pallas (K2; also try_vel_pallas)|
 | minimize_vel| csrc/try_vel.cu       | the same, 1 + iterations passes + LM update |
 | tube_match  | csrc/tube_match.cu    | tube_match_pallas (K4)                      |
-| match_reg_ekf | csrc/reg_ekf.cu     | reg_ekf_pallas (K5), with the matcher's tail and the gate; reg_ekf is its call with nothing matched |
+| match_reg_ekf | csrc/reg_ekf.cu     | reg_ekf_pallas (K5), with the matcher's tail and the gate |
+| reg_ekf     | csrc/reg_ekf.cu       | reg_ekf_pallas (K5) alone, one launch       |
 | estimate_bias | csrc/sab.cu         | estimate_bias_pallas (K3)                   |
-| att_field   | csrc/seed_scatter.cu, csrc/flood.cu | att_field_pallas (K1b)        |
+| att_field   | csrc/flood.cu         | att_field_pallas (K1b): seeding and flood, one launch |
 | nn_field    | csrc/seed_scatter.cu, csrc/nn_flood.cu | nn_field_pallas (K7)       |
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and launches on the current stream.  A tensor
 on the CPU goes to the plain version beside it (same inputs, same
 outputs); a CUDA tensor launches the kernel or raises.  ``LAUNCHES[name]``
-counts the wrapper's kernel launches (a multi-kernel call counts once).
+counts the wrapper's kernel launches (a multi-kernel call counts once;
+``reg_ekf`` counts the fused stage, ``reg_ekf_alone`` K5 alone).
 ``chol_inverse`` (csrc/chol_inverse.cu, launched by geometry/linalg.py)
 replaces no TPU kernel and is counted here too.
 
 On the card the step's kernels (att_flood, minimize_vel / try_vel,
-tube_match, match_reg_ekf, estimate_bias, chol_inverse) are reached through
+tube_match, match_reg_ekf, reg_ekf, estimate_bias, chol_inverse) are reached through
 PyTorch operators (``torch.ops.rebvio.*``) with a vmap rule: under
 ``torch.func.vmap`` (parallel/batch.py) each launches ONCE over all B lanes,
 its inputs [B, ...], as ``jax.vmap`` of a ``pallas_call`` adds a grid axis.
@@ -45,7 +47,8 @@ from torch.library import custom_op
 from rebvio_tpu_torch.ops import _build
 
 LAUNCHES = {"att_flood": 0, "try_vel": 0, "minimize_vel": 0, "tube_match": 0, "reg_ekf": 0,
-            "estimate_bias": 0, "att_field": 0, "nn_field": 0, "chol_inverse": 0}
+            "reg_ekf_alone": 0, "estimate_bias": 0, "att_field": 0, "nn_field": 0,
+            "chol_inverse": 0}
 
 f32, i32 = torch.float32, torch.int32
 
@@ -255,6 +258,13 @@ def seed_winner_plain(pos, use, rows: int, cols: int, inv_s: float):
     return win[:n], py, px
 
 
+def _at_winner(v: torch.Tensor, winner: torch.Tensor, fill: float) -> torch.Tensor:
+    """``v[winner]`` on the cells a keyline won, ``fill`` elsewhere (an
+    empty table too)."""
+    w = torch.where(winner >= 0, winner.to(torch.int64), v.shape[0])
+    return torch.cat([v, v.new_full((1,), fill)])[w]
+
+
 def _check_table(pos, grad, use, name):
     K = pos.shape[0]
     _check(pos, f32, (K, 2), name + " pos")
@@ -276,28 +286,32 @@ def _seed_winner(lib, pos, use, rows: int, cols: int, inv_s: float) -> torch.Ten
 
 def att_field(pos, grad, use, search_range: int, rows: int, cols: int,
               scale: int) -> torch.Tensor:
-    """Attribute field from the keyline table (csrc/seed_scatter.cu, then
-    csrc/flood.cu): ``pos``, ``grad`` [K, 2] and the gate ``use`` [K] bool
-    seed the region stack (largest index wins a shared cell, whole row from
-    the winner), and K1's flood runs on it.  ``search_range``, ``rows``,
-    ``cols`` in image units; returns the ``[8, N]`` planes of the
-    ``ceil(rows/scale) x ceil(cols/scale)`` field."""
+    """Attribute field from the keyline table (csrc/flood.cu's
+    att_field_kernel, one cooperative launch: the winner plane, then K1's
+    flood over seeds read from the table): ``pos``, ``grad`` [K, 2] and the
+    gate ``use`` [K] bool seed the field (largest index wins a shared cell,
+    whole row from the winner).  ``search_range``, ``rows``, ``cols`` in
+    image units; returns the ``[8, N]`` planes of the ``ceil(rows/scale) x
+    ceil(cols/scale)`` field."""
     from rebvio_tpu_torch.ops.distance_field import field_geometry
 
     if not _on_cuda(pos, grad, use):
         return att_field_plain(pos, grad, use, search_range, rows, cols, scale)
-    _check_table(pos, grad, use, "att_field")
+    K = _check_table(pos, grad, use, "att_field")
     frows, fcols, sr = field_geometry(search_range, rows, cols, scale)
-    pad, Rp = flood_layout(frows, sr)
+    pad, _ = flood_layout(frows, sr)
+    steps, n_long, n_short, halo = _flood_args(sr, pad)
     lib = _build.load()
-    inv_s = 1.0 / scale
-    winner = _seed_winner(lib, pos, use, frows, fcols, inv_s)
-    stack = torch.empty((5 * Rp, fcols), dtype=f32, device=pos.device)
-    err = lib.rk_seed_stack(_ptr(pos), _ptr(grad), _ptr(winner), inv_s, frows, fcols, pad,
-                            _ptr(stack), _stream(pos))
+    n = frows * fcols
+    scratch = torch.empty((7 * n,), dtype=f32, device=pos.device)   # state, then the winners
+    out = torch.empty((8, n), dtype=f32, device=pos.device)
+    err = lib.rk_att_field(_ptr(pos), _ptr(grad), _ptr(use), K, 1.0 / scale, _ptr(scratch),
+                           _ptr(out), 1, frows, fcols, pad, sr, float(scale), steps, n_long,
+                           n_short, halo, _coop_limit(lib, "rk_att_field", pos.device),
+                           _stream(pos))
     _raise_on(err, "att_field")
     LAUNCHES["att_field"] += 1
-    return att_flood(stack, sr, frows, fcols, scale)
+    return out
 
 
 def seed_stack_plain(pos, grad, use, search_range: int, rows: int, cols: int, scale: int):
@@ -309,12 +323,10 @@ def seed_stack_plain(pos, grad, use, search_range: int, rows: int, cols: int, sc
     frows, fcols, sr = field_geometry(search_range, rows, cols, scale)
     pad, Rp = flood_layout(frows, sr)
     winner, py, px = seed_winner_plain(pos, use, frows, fcols, 1.0 / scale)
-    has = winner >= 0
-    w = torch.clamp(winner, min=0).to(torch.int64)
     planes = torch.stack([
-        torch.where(has, py[w], BIG), torch.where(has, px[w], BIG),
-        torch.where(has, winner.to(f32), -1.0),
-        torch.where(has, grad[w, 0], 0.0), torch.where(has, grad[w, 1], 0.0)])
+        _at_winner(py, winner, BIG), _at_winner(px, winner, BIG),
+        torch.where(winner >= 0, winner.to(f32), -1.0),
+        _at_winner(grad[:, 0], winner, 0.0), _at_winner(grad[:, 1], winner, 0.0)])
     fill = torch.tensor([BIG, BIG, -1.0, 0.0, 0.0], dtype=f32, device=pos.device)
     stack = torch.cat([planes.reshape(5, frows, fcols),
                        fill[:, None, None].expand(5, Rp - frows, fcols)], dim=1)
@@ -417,11 +429,9 @@ def nn_field_plain(pos, use, search_range: int, rows: int, cols: int):
 
     dev = pos.device
     winner, py, px = seed_winner_plain(pos, use, rows, cols, 1.0)
-    has = winner >= 0
-    w = torch.clamp(winner, min=0).to(torch.int64)
     sid = winner.reshape(rows, cols)
-    sy = torch.where(has, py[w], BIG).reshape(rows, cols)
-    sx = torch.where(has, px[w], BIG).reshape(rows, cols)
+    sy = _at_winner(py, winner, BIG).reshape(rows, cols)
+    sx = _at_winner(px, winner, BIG).reshape(rows, cols)
     yy = torch.arange(rows, dtype=f32, device=dev)[:, None]
     xx = torch.arange(cols, dtype=f32, device=dev)[None, :]
 
@@ -779,6 +789,7 @@ _MRE_NAMES = ("rho", "sigma_rho", "grad", "grad_norm", "id_next", "id_prev", "va
               "match_id", "pos_img", "match_pos_img", "match_grad", "match_grad_norm", "vel",
               "tube_out", "matches", "match_id_keyframe", "R_tot", "fail_nan")
 _MRE_SLOTS = 29         # csrc/reg_ekf.cu N_SLOTS: the 18 inputs above, then the outputs
+_REG_SLOTS = 13         # K5 alone's inputs: rho .. vel
 
 
 @functools.lru_cache(maxsize=None)
@@ -789,33 +800,43 @@ def _mre_specs(K: int):
             (f32, (12, K)), i, i, (f32, (3, 3)), (torch.bool, ()))
 
 
-def _check_mre(ts, specs):
+def _check_mre(ts, specs, name: str):
     """One pass over the inputs; the per-tensor messages only on a mismatch."""
     if tuple((t.dtype, t.shape) for t in ts) == specs and all(t.is_contiguous() for t in ts):
         return
     for t, (dtype, shape), what in zip(ts, specs, _MRE_NAMES):
-        _check(t, dtype, shape, f"match_reg_ekf {what}")
+        _check(t, dtype, shape, f"{name} {what}")
 
 
 def reg_ekf(rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, match_id,
             pos_img, match_pos_img, match_grad, match_grad_norm, vel, p: RegEkfParams):
     """regularize_1iter then the inverse-depth EKF.  Returns (rho,
-    sigma_rho).  On the card it is match_reg_ekf with nothing found (K4's
-    output all zero), fail_nan false and min_matches 0: the tail writes
-    nothing and the gate passes."""
+    sigma_rho).  On the card one launch of csrc/reg_ekf.cu's reg_ekf_alone
+    (its inputs are the first _REG_SLOTS of the fused stage's)."""
     ins = (rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, match_id,
            pos_img, match_pos_img, match_grad, match_grad_norm, vel)
     if not _on_cuda(*ins):
         return reg_ekf_plain(*ins, p)
-    K, dev = rho.shape[0], rho.device
-    # match_id stands in for the two id planes the tail would copy
-    out = match_reg_ekf(torch.zeros((12, K), dtype=f32, device=dev), rho, sigma_rho, grad,
-                        grad_norm, id_next, id_prev, valid, match_id, match_id, match_id,
-                        pos_img, match_pos_img, match_grad, match_grad_norm, vel,
-                        torch.eye(3, dtype=f32, device=dev),
-                        torch.zeros((), dtype=torch.bool, device=dev),
-                        MatchRegEkfParams(*p, cx=0.0, cy=0.0, min_matches=0))
+    out = torch.ops.rebvio.reg_ekf(list(ins), _floats(p))
     return out[0], out[1]
+
+
+def _launch_reg_ekf(ins, p: RegEkfParams) -> torch.Tensor:
+    """One launch of csrc/reg_ekf.cu's reg_ekf_alone over the B lanes of its
+    [B, ...] inputs (the first _REG_SLOTS of _MRE_NAMES).  Returns [B, 2, K]
+    float32: rho, sigma_rho."""
+    B, K = ins[0].shape
+    _check_mre(ins, tuple((dt, (B,) + shape) for dt, shape in _mre_specs(K)[:_REG_SLOTS]),
+               "reg_ekf")
+    out = torch.empty((B, 2, K), dtype=f32, device=ins[0].device)
+    ts = tuple(ins) + (out[:, 0], out[:, 1])
+    ptrs = (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    strides = (ctypes.c_longlong * len(ts))(*[t.stride(0) * t.element_size() for t in ts])
+    err = _build.load().rk_reg_ekf(ptrs, strides, B, K, p.threshold, p.q_abs2, p.pu2, p.fm,
+                                   _stream(ins[0]))
+    _raise_on(err, "reg_ekf")
+    LAUNCHES["reg_ekf_alone"] += 1
+    return out
 
 
 def match_reg_ekf(tube_out, rho, sigma_rho, grad, grad_norm, id_next, id_prev, valid, match_id,
@@ -853,7 +874,7 @@ def _launch_match_reg_ekf(ins, p: MatchRegEkfParams):
     blocks] int32: match_id, matches, keyframe id, klm, then the count's
     partials; failed [B] bool)."""
     B, K = ins[0].shape
-    _check_mre(ins, tuple((dt, (B,) + shape) for dt, shape in _mre_specs(K)))
+    _check_mre(ins, tuple((dt, (B,) + shape) for dt, shape in _mre_specs(K)), "match_reg_ekf")
     dev = ins[0].device
     fo = torch.empty((B, 7 * K), dtype=f32, device=dev)
     io = torch.empty((B, 3 * K + 1 + -(-K // _MRE_THREADS)), dtype=i32, device=dev)
@@ -1201,6 +1222,16 @@ def _match_reg_ekf_op(ins: List[torch.Tensor], p: List[float]
 @_match_reg_ekf_op.register_vmap
 def _match_reg_ekf_lanes(info, in_dims, ins, p):
     return _launch_match_reg_ekf(_lanes(info, in_dims[0], ins), _mre_params(p)), (0, 0, 0)
+
+
+@custom_op("rebvio::reg_ekf", mutates_args=())
+def _reg_ekf_op(ins: List[torch.Tensor], p: List[float]) -> torch.Tensor:
+    return _launch_reg_ekf([t[None] for t in ins], RegEkfParams(*p))[0]
+
+
+@_reg_ekf_op.register_vmap
+def _reg_ekf_lanes(info, in_dims, ins, p):
+    return _launch_reg_ekf(_lanes(info, in_dims[0], ins), RegEkfParams(*p)), 0
 
 
 @custom_op("rebvio::estimate_bias", mutates_args=())

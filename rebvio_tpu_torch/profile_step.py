@@ -41,7 +41,8 @@ from rebvio_tpu_torch.runner import VioRunner
 PORTED = {"att_flood": ("att_flood_kernel",),
           "minimize_vel": ("minimize_vel_kernel",),
           "tube_match": ("tube_match_kernel",),
-          "reg_ekf": ("reg_ekf",),
+          "reg_ekf": ("match_reg_ekf",),
+          "reg_ekf_alone": ("reg_ekf_alone",),
           "estimate_bias": ("estimate_bias_kernel",),
           "chol_inverse": ("chol_inverse_kernel",)}
 

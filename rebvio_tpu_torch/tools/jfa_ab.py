@@ -2,7 +2,7 @@
 geometry (8192 keylines, 752x480 image, field 240x376, field search range
 20): the id-only nearest field (kernel K7, ``build_nn_field``), the
 scatter-seeded attribute field (kernel K1b, ``build_att_field`` from the
-keyline table) and the dense-seeded flood (kernel K1 fed by
+keyline table: seeding and flood in one launch) and the dense-seeded flood (kernel K1 fed by
 ``seed_stack_dense``), on frame 1 of the seed-0 synthetic sequence.
 
     python -m rebvio_tpu_torch.tools.jfa_ab

@@ -4,7 +4,8 @@ parity profile (752x480, 16000 keylines): the translation LM solve
 between them), K2's single pass (``kernels.try_vel``), the SAB solve (``kernels.estimate_bias``, kernel K3), the
 7x7 Cholesky inverse (``linalg.chol_inverse``), the tube matcher alone
 (``kernels.tube_match``, K4), the depth update's wrapper alone
-(``kernels.reg_ekf``, K5 with nothing matched), K5's fused wrapper
+(``kernels.reg_ekf``, K5 alone, the reference-semantics step's call: one
+launch of its own kernel), K5's fused wrapper
 (``kernels.match_reg_ekf``: the matcher's tail, the gates, the depth
 update) and the whole matcher-and-depth stage as the step runs it
 (``matching.match_and_update_depth``: the geometry, K4, then K5), on inputs
@@ -93,7 +94,7 @@ def _depth_stage(vcfg, stage_call, tube_call) -> dict:
              new.match_grad.contiguous(), new.match_grad_norm, V.contiguous(),
              a[4].T.contiguous(), torch.isnan(V).any(), mp)
     return {"tube_match (K4)": lambda: kernels.tube_match(*tube_call),
-            "reg_ekf wrapper (K5 alone, nothing matched)": lambda: kernels.reg_ekf(*reg_args),
+            "reg_ekf wrapper (K5 alone)": lambda: kernels.reg_ekf(*reg_args),
             "match_reg_ekf wrapper (K5 fused)": lambda: kernels.match_reg_ekf(*margs),
             STAGE: lambda: matching.match_and_update_depth(*a, **kw)}
 

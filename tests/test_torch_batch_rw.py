@@ -4,8 +4,9 @@ own ``pipeline.step``) against the JAX package's (jax.vmap of its step, K2
 and K5 in Pallas interpret mode) at the small preset; each lane against the
 port's unbatched R+W step; repeated lanes bit for bit; the two kernels this
 path launches with a lane axis, K2 on ``tracker.raster_att``'s
-full-resolution table and K5 alone (``kernels.reg_ekf``: the fused call with
-nothing matched, its all-zero K4 output, ``eye(3)`` and zero flag
+full-resolution table and K5 alone (``kernels.reg_ekf``: one launch of its
+own kernel; the fused plain version also as the card called it for K5 alone
+before, nothing matched, its all-zero K4 output, ``eye(3)`` and zero flag
 unbatched), as plain versions under vmap against B unbatched calls and
 through their operators' vmap rule with the launches emulated
 (tests/torch_helpers.emulated_launches); and no op through vmap's per-lane
@@ -124,9 +125,9 @@ def rw_kernel_lanes():
 
 
 def _alone_lanes(lanes):
-    """match_reg_ekf as kernels.reg_ekf calls it on the card, per lane: the
-    all-zero K4 output, eye(3) and the zero flag (unbatched under vmap, so
-    in_dims None), match_id for the two id planes the tail would copy."""
+    """match_reg_ekf with nothing matched, per lane: the all-zero K4 output,
+    eye(3) and the zero flag (unbatched under vmap, so in_dims None),
+    match_id for the two id planes the tail would copy."""
     out = []
     for ln in lanes:
         (rho, sr, grad, gn, idn, idp, valid, mid, pos, mpos, mgrad, mgn, vel, p) = ln["reg_ekf"]
@@ -145,8 +146,8 @@ UNBATCHED_ARGS = (0, 16, 17)   # match_reg_ekf alone: tube_out, R_tot, fail_nan
 def test_rw_plain_versions_under_vmap(rw_kernel_lanes, name):
     """K2's plain LM solve on the raster table (its Gram products may sum in
     another order batched: 1e-5 of the largest entry), K5's plain version
-    alone and the fused plain version as the card calls it alone (bit for
-    bit) under vmap against one call a lane."""
+    alone and the fused plain version with nothing matched (bit for bit)
+    under vmap against one call a lane."""
     lanes = _alone_lanes(rw_kernel_lanes) if name == "match_reg_ekf" else rw_kernel_lanes
     args, dims, per = batched_args(lanes, name)
     if name == "match_reg_ekf":
@@ -163,10 +164,9 @@ def test_rw_plain_versions_under_vmap(rw_kernel_lanes, name):
 @pytest.mark.parametrize("name", ["minimize_vel", "reg_ekf"])
 def test_rw_operator_vmap_rule_lanes(rw_kernel_lanes, name):
     """The wrapper under vmap reaches its operator's vmap rule once (K5
-    alone: the unbatched zeros, eye and flag that kernels.reg_ekf makes are
-    expanded to the lanes by the rule), and every lane gets what an
-    unbatched call gives, bit for bit (the emulated launch computes lane by
-    lane)."""
+    alone: its own launcher, not the fused stage's), and every lane gets
+    what an unbatched call gives, bit for bit (the emulated launch computes
+    lane by lane)."""
     args, dims, per = batched_args(rw_kernel_lanes, name)
     fn = getattr(kernels, name)
     with pytest.MonkeyPatch.context() as mp:
@@ -176,7 +176,7 @@ def test_rw_operator_vmap_rule_lanes(rw_kernel_lanes, name):
         calls.clear()
         got = as_list(torch.func.vmap(lambda *a: fn(*a), in_dims=dims)(*args))
     assert calls == ["_launch_minimize_vel" if name == "minimize_vel"
-                     else "_launch_match_reg_ekf"]       # one launch for all lanes
+                     else "_launch_reg_ekf"]             # one launch for all lanes
     for b in range(B):
         for g, w in zip(got, want[b]):
             assert torch.equal(g[b], w) or torch.equal(g[b].nan_to_num(), w.nan_to_num()), name

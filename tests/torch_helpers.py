@@ -467,6 +467,10 @@ def emulated_launches(mp):
             failed.append(o[9])
         return torch.stack(fo), torch.stack(io), torch.stack(failed)
 
+    def reg(ins, p):
+        return torch.stack([torch.stack(kernels.reg_ekf_plain(*(t[b] for t in ins), p))
+                            for b in range(ins[0].shape[0])])
+
     def sab(ins, iters):
         outs = [kernels.estimate_bias_plain(*(t[b] for t in ins), iters)
                 for b in range(ins[0].shape[0])]
@@ -475,6 +479,7 @@ def emulated_launches(mp):
     calls = []
     for launch, fn in (("_launch_att_flood", flood), ("_launch_minimize_vel", solve),
                        ("_launch_tube_match", tube), ("_launch_match_reg_ekf", mre),
+                       ("_launch_reg_ekf", reg),
                        ("_launch_estimate_bias", sab),
                        ("_launch_chol_inverse", linalg.chol_inverse_plain)):
         def counted(*a, _fn=fn, _name=launch):
