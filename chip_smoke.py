@@ -165,7 +165,15 @@ Phases (any failure exits non-zero):
      versions under vmap lane by lane at phase 2's tolerances and against 8
      one-lane calls bit for bit; profile_step --vio --graph --matcher walk
      with and without --batch 8 (operations, device busy and idle share,
-     each batched kernel's device ms beside 8x its bound).
+     each batched kernel's device ms beside 8x its bound);
+ 12. the measurement programs at reduced sizes, counters as in 3 around
+     each: rebvio_tpu_torch.bench's main (BENCH_CHUNK=16, one streaming run,
+     the realtime sweep at speed 1.0 only over 16 frames, the mapped section
+     over 16 frames, the roofline and stage-ceiling sections), every field
+     of the JAX bench's result line present and finite, no ceiling fraction
+     above 1.05, the step's kernels launched; tools.profile_stages once for
+     each matcher, the stage deltas summing to within 15 % of the replayed
+     pipeline.step; tools.scaling_bench at B = 1, 2 over 8 frames.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1659,6 +1667,97 @@ def phase11(np, torch, kernels, card, streams, bounds):
     return None, entries, launches
 
 
+# Phase 12.  The measurement programs at reduced sizes (their full runs are
+# `python -m rebvio_tpu_torch.bench` and the tools' own command lines)
+BENCH_PHASE_N = 16
+CEILING_MAX = 1.05          # a ceiling fraction above this means a count is wrong
+STAGE_SUM_RTOL = 0.15       # the stage deltas' sum against the replayed step
+BENCH_ENV = ("BENCH_PROFILE", "BENCH_CHUNK", "BENCH_STREAMING", "BENCH_REALTIME",
+             "BENCH_MAPPED", "BENCH_ROOFLINE", "BENCH_LOWLAT")
+
+
+def leaves(tree):
+    """The scalar leaves of a JSON value."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def phase12(torch, kernels, card):
+    """Phase 12 of the module docstring.  Returns an error or None."""
+    import contextlib
+    import io
+    import math
+    import os
+
+    from rebvio_tpu_torch import bench
+    from rebvio_tpu_torch.tools import profile_stages, scaling_bench
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.pop(k) for k in BENCH_ENV if k in os.environ}
+    os.environ["BENCH_CHUNK"] = str(BENCH_PHASE_N)
+    try:
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = bench.main(runs=1, speeds=(1.0,), rt_frames=BENCH_PHASE_N,
+                             mapped_frames=BENCH_PHASE_N)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        os.environ.pop("BENCH_CHUNK")
+        os.environ.update(saved)
+    print(buf.getvalue().strip(), flush=True)
+    missing = [k for k in bench.RESULT_KEYS if k not in res]
+    missing += [f"profiles.{p}.{k}" for p in ("fast", "parity") for k in bench.PROFILE_KEYS
+                if k not in res["profiles"].get(p, {})]
+    bad = [x for x in leaves({k: v for k, v in res.items() if k != "device"})
+           if not (isinstance(x, str) or (isinstance(x, (int, float)) and math.isfinite(x)))]
+    if missing or bad:
+        return f"phase 12: the bench's line lacks {missing} or holds non-finite {bad}"
+    fractions = {"jtj_roofline_fraction": res["jtj_roofline_fraction"],
+                 **{k: res["stage_ceilings"][k] for k in ("detect_vs_mxu", "jfa_vs_hbm",
+                                                          "tube_vs_gather")}}
+    over = {k: v for k, v in fractions.items() if not v <= CEILING_MAX}
+    if over:
+        return f"phase 12: ceiling fractions above {CEILING_MAX}: {over}"
+    want = ("att_flood", "minimize_vel", "tube_match", "reg_ekf", "estimate_bias",
+            "chol_inverse", "try_vel", "att_field")
+    if not all(launches.get(k, 0) > 0 for k in want):
+        return f"phase 12: the bench launched {launches}, needs each of {want}"
+
+    stages = {}
+    for matcher, kernel in (("tube", "tube_match"), ("walk", "reg_ekf_alone")):
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = profile_stages.main(["--matcher", matcher, "--iters", "10", "--profiled", "2"])
+        stage_launches = dict(kernels.LAUNCHES)
+        print(buf.getvalue().strip(), flush=True)
+        stages[matcher] = {"deltas_sum_ms": out["deltas_sum_ms"], "step_ms": out["step_ms"],
+                           "launches": stage_launches}
+        if not abs(out["deltas_over_step"] - 1.0) <= STAGE_SUM_RTOL:
+            return (f"phase 12: {matcher} stage deltas sum to {out['deltas_sum_ms']} ms, the "
+                    f"replayed step takes {out['step_ms']} ms")
+        if not stage_launches.get(kernel, 0) > 0:
+            return f"phase 12: profile_stages --matcher {matcher} never launched {kernel}"
+
+    kernels.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sweep = scaling_bench.main(["--batch-sweep", "1,2", "--frames", "8"])
+    print(buf.getvalue().strip(), flush=True)
+    if not all(math.isfinite(v) and v > 0 for v in sweep["results"].values()):
+        return f"phase 12: batch sweep {sweep}"
+    print(json.dumps({"check": "the measurement programs at reduced sizes", "card": card,
+                      "bench_launches": launches, "ceiling_fractions": fractions,
+                      "profile_stages": stages, "batch_sweep_fps": sweep["results"],
+                      "sweep_launches": dict(kernels.LAUNCHES)}), flush=True)
+    print(json.dumps({"phase": 12, "seconds": time.perf_counter() - t_phase}), flush=True)
+    return None
+
+
 def free_port() -> int:
     """A localhost TCP port that was free a moment ago."""
     import socket
@@ -1734,8 +1833,9 @@ def smoke(np, torch, jobs) -> int:
     solve_maps, chol_inputs = [], []     # (old map, field) of each LM solve; chol_inverse's inputs
     seed_calls = []                      # distance_field.seed_stack_dense's inputs, one a frame
     stage_calls = []                     # matching.match_and_update_depth's (args, kwargs, out)
+    # (the step calls it as its stage generator, match_and_update_depth_stages)
     plain_solve, plain_chol = tracker.minimize_vel, linalg.chol_inverse
-    plain_seed, plain_stage = DF.seed_stack_dense, matching.match_and_update_depth
+    plain_seed, plain_stage = DF.seed_stack_dense, matching.match_and_update_depth_stages
 
     def recording_solve(old, att, *rest, **kw):
         solve_maps.append((old, att))
@@ -1750,7 +1850,7 @@ def smoke(np, torch, jobs) -> int:
         return plain_seed(*args)
 
     def recording_stage(*args, **kw):
-        out = plain_stage(*args, **kw)
+        out = yield from plain_stage(*args, **kw)
         stage_calls.append((args, kw, out))
         return out
 
@@ -1765,7 +1865,7 @@ def smoke(np, torch, jobs) -> int:
         for name in names:
             setattr(kernels, name, recorder(name))
         tracker.minimize_vel, linalg.chol_inverse = recording_solve, recording_chol
-        DF.seed_stack_dense, matching.match_and_update_depth = recording_seed, recording_stage
+        DF.seed_stack_dense, matching.match_and_update_depth_stages = recording_seed, recording_stage
         n_solve, n_stage = len(solve_maps), len(stage_calls)
         n_calls = {name: len(captured.get(name, [])) for name in names}
         try:
@@ -1775,7 +1875,7 @@ def smoke(np, torch, jobs) -> int:
             for name in names:
                 setattr(kernels, name, originals[name])
             tracker.minimize_vel, linalg.chol_inverse = plain_solve, plain_chol
-            DF.seed_stack_dense, matching.match_and_update_depth = plain_seed, plain_stage
+            DF.seed_stack_dense, matching.match_and_update_depth_stages = plain_seed, plain_stage
         # the estimate also runs on frame 0 (on an empty map; its result is
         # selected away, as in JAX): drop that call, so that call i of the
         # estimate's kernels is frame i + 1
@@ -2653,6 +2753,11 @@ def smoke(np, torch, jobs) -> int:
 
     # ---------------- phase 11: the reference-semantics step batched
     err, rw_batched, rw_launches = phase11(np, torch, kernels, card, streams, b)
+    if err:
+        return fail(err)
+
+    # ---------------- phase 12: the measurement programs
+    err = phase12(torch, kernels, card)
     if err:
         return fail(err)
 

@@ -11,7 +11,7 @@ hands it frame i+1's device buffer before it dispatches step i.  Here:
   the event recorded behind the replay that read it has completed, so the
   host never overwrites a pinned buffer the device has yet to read.
 - ``StepProgram``: the step over the n frames of a slot.  On a CUDA device
-  with ``graph=True`` it is captured once into a ``torch.cuda.CUDAGraph``
+  with ``graph=True`` it is captured once into a CUDA graph (``CapturedGraph``)
   over static buffers (the input slot, the caller's state, the packed
   odometry and, for the mapped runner, the packed mapping trace beside it)
   and replayed; otherwise it runs eagerly.  A capture or replay that fails
@@ -26,7 +26,9 @@ i, and a slot's twin is reread only after its own copy.
 
 from __future__ import annotations
 
+import ctypes
 import gc
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -69,6 +71,11 @@ def unpack_trace(rows: np.ndarray, kmax: int):
             rows[:, 2 * K:4 * K].reshape(-1, K, 2), rows[:, 4 * K:5 * K], rows[:, 5 * K])
 
 
+def np_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype."""
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
 def copy_tree_(dst, src) -> None:
     """``copy_`` every leaf of ``src`` into the matching leaf of ``dst``.  A
     source leaf that lies in the storage of another destination leaf would
@@ -96,13 +103,20 @@ class SlotLayout:
         self.words = imu_words(sample_max) + 1
         self.nbytes = self.imu_off + n * self.words * 4
 
-    def pack(self, slot: np.ndarray, k: int, image, gyro, acc, ts_us, dt: float) -> None:
-        """Frame ``k`` of the slot (host bytes ``slot``)."""
-        image = np.asarray(image)
-        if image.shape != self.shape or image.dtype != self.dtype:
-            raise ValueError(f"frame {image.dtype} {image.shape}: this runner's static input "
+    def check(self, shape, dtype) -> None:
+        """Raise unless a frame of ``shape`` and numpy ``dtype`` fits a slot."""
+        if tuple(shape) != self.shape or dtype != self.dtype:
+            raise ValueError(f"frame {dtype} {tuple(shape)}: this runner's static input "
                              f"takes {self.dtype} {self.shape}")
-        slot[:self.frame_bytes].view(self.dtype).reshape((self.n,) + self.shape)[k] = image
+
+    def pack(self, slot: np.ndarray, k: int, image, gyro, acc, ts_us, dt: float) -> None:
+        """Frame ``k`` of the slot (host bytes ``slot``); ``image`` None
+        leaves the frame's bytes as they are (a frame already on the card is
+        copied into the slot's device twin instead: ``StepProgram.stage``)."""
+        if image is not None:
+            image = np.asarray(image)
+            self.check(image.shape, image.dtype)
+            slot[:self.frame_bytes].view(self.dtype).reshape((self.n,) + self.shape)[k] = image
         row = slot[self.imu_off:].view(np.float32).reshape(self.n, self.words)[k]
         pack_imu_host(row[:-1], gyro, acc, ts_us, self.S)
         row[-1] = dt
@@ -162,11 +176,15 @@ class StepProgram:
     workspaces), then captures it with ``state`` as static input and output
     (the new state is ``copy_``-ed into it, never rebound) and replays it
     from then on.  Launches counted in ``kernels.LAUNCHES`` during warm-up
-    and capture are taken back; each replay adds the captured ones."""
+    and capture are taken back; each replay adds the captured ones.
+    ``keep_graph`` keeps the captured ``cudaGraph_t`` beside its executable
+    (``CUDAGraph(keep_graph=True)``, instantiated at capture) so that a
+    caller can read it, e.g. its node count."""
 
     def __init__(self, fn: Callable, layout: SlotLayout, device: torch.device, n_slots: int,
-                 graph: bool, copy_stream=None, trace_words: int = 0):
+                 graph: bool, copy_stream=None, trace_words: int = 0, keep_graph: bool = False):
         self.fn, self.layout, self.device = fn, layout, device
+        self.keep_graph = keep_graph
         self.cuda = device.type == "cuda"
         self.graph = graph and self.cuda
         self.ring = StagingRing([torch.empty(layout.nbytes, dtype=torch.uint8,
@@ -180,22 +198,55 @@ class StepProgram:
         self.buf = torch.zeros((layout.n, ODO_WORDS + trace_words), dtype=f32, device=device)
         self.out = self.buf[:, :ODO_WORDS]
         self.trace = self.buf[:, ODO_WORDS:] if trace_words else None
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self.captured_launches = {}
+        self._graph: Optional[CapturedGraph] = None
 
     def stage(self, frames) -> int:
         """Pack ``frames`` (n tuples (image, gyro, acc, ts_us, dt)) into a free
-        slot and, on the card, start its upload.  Returns the slot."""
+        slot and, on the card, start its upload.  An image that is a tensor
+        on the card is copied into the slot's device twin on the copy stream,
+        after the host bytes and after the work queued so far on the current
+        stream, not through the host.  Returns the slot."""
         k = self.ring.acquire()
         host = self.ring.slots[k]
         buf = host.numpy()
+        resident = [(i, fr[0]) for i, fr in enumerate(frames)
+                    if torch.is_tensor(fr[0]) and fr[0].is_cuda]
+        if resident and not self.cuda:
+            raise ValueError("a frame on the card for a program on the CPU")
         for i, fr in enumerate(frames):
-            self.layout.pack(buf, i, *fr)
+            image = None if torch.is_tensor(fr[0]) and fr[0].is_cuda else fr[0]
+            self.layout.pack(buf, i, image, *fr[1:])
         if self.cuda:
             with torch.cuda.stream(self.copy_stream):
                 self.twins[k].copy_(host, non_blocking=True)
+                if resident:
+                    self.copy_stream.wait_stream(torch.cuda.current_stream(self.device))
+                    slot_frames = self.layout.views(self.twins[k])[0]
+                    for i, image in resident:
+                        self.layout.check(image.shape, np_dtype(image.dtype))
+                        slot_frames[i].copy_(image)
+                        image.record_stream(self.copy_stream)
                 ev = torch.cuda.Event()
                 ev.record(self.copy_stream)
+            self._copied[k] = ev
+        return k
+
+    def stage_resident(self, frames: torch.Tensor, imu: T.ImuFrameData, dts: torch.Tensor) -> int:
+        """Stage inputs that already lie on the program's device (frames [n,
+        H, W] of the layout's dtype, windows with leaves [n, ...], dts [n]):
+        copied into a free slot's device twin on the current stream (on the
+        CPU, into the slot).  Returns the slot; a slot's inputs stay until it
+        is staged again, so ``run`` may replay it more than once."""
+        k = self.ring.acquire()
+        slot = self.twins[k] if self.cuda else self.ring.slots[k]
+        f, w, d = self.layout.views(slot)
+        self.layout.check(frames.shape[1:], np_dtype(frames.dtype))
+        f.copy_(frames)
+        copy_tree_(w, imu)
+        d.copy_(dts)
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
             self._copied[k] = ev
         return k
 
@@ -217,8 +268,6 @@ class StepProgram:
             if self._graph is None:
                 self._capture(state)
             self._graph.replay()
-            for name, n in self.captured_launches.items():
-                kernels.LAUNCHES[name] += n
         else:
             frames, imu, dts = self.layout.views(self.static_in)
             state, *outs = self.fn(state, frames, imu, dts)
@@ -236,17 +285,43 @@ class StepProgram:
 
     def _capture(self, state: T.VioState) -> None:
         frames, imu, dts = self.layout.views(self.static_in)
+        scratch = []
+
+        def warm():             # from a copy of the state, which stays as it is
+            s = scratch.pop() if scratch else T.tree_map(torch.clone, state)
+            scratch.append(self.fn(s, frames, imu, dts)[0])
+
+        def step():
+            new_state, *outs = self.fn(state, frames, imu, dts)
+            copy_tree_(state, new_state)
+            self._store(outs)
+
+        self._graph = CapturedGraph(step, warm=warm, device=self.device,
+                                    keep_graph=self.keep_graph)
+
+
+class CapturedGraph:
+    """``fn()`` (device work that never syncs the host) captured into one
+    CUDA graph on a side stream: ``warm()`` (default ``fn``) runs twice
+    there first, filling every cache, the kernel build and cuBLAS's
+    workspaces; ``out`` holds the capture's outputs, which every replay
+    rewrites.  Launches counted in ``kernels.LAUNCHES`` during warm-up and
+    capture are taken back; each ``replay`` adds the captured ones.
+    ``keep_graph`` keeps the ``cudaGraph_t`` beside its executable
+    (instantiated here) so that a caller can read it, e.g. its node count."""
+
+    def __init__(self, fn: Callable, warm: Callable = None, device=None,
+                 keep_graph: bool = False):
+        device = torch.device("cuda") if device is None else torch.device(device)
         before = dict(kernels.LAUNCHES)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            scratch = T.tree_map(torch.clone, state)
             for _ in range(2):
-                scratch, *_outs = self.fn(scratch, frames, imu, dts)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        del scratch, _outs
-        warm = dict(kernels.LAUNCHES)
-        g = torch.cuda.CUDAGraph()
+                (warm or fn)()
+        torch.cuda.current_stream(device).wait_stream(side)
+        after_warm = dict(kernels.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
         # no garbage collection while capturing: a collected cycle holding a
         # CUDA graph or an event (an earlier runner) would free it with a
         # CUDA call that the capture does not permit, and invalidate it
@@ -254,16 +329,46 @@ class StepProgram:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(g, stream=side):
-                new_state, *outs = self.fn(state, frames, imu, dts)
-                copy_tree_(state, new_state)
-                self._store(outs)
-            del new_state, outs
+            with torch.cuda.graph(self.graph, stream=side):
+                self.out = fn()
         finally:
             if collecting:
                 gc.enable()
-        self.captured_launches = {name: kernels.LAUNCHES[name] - warm[name]
-                                  for name in kernels.LAUNCHES
-                                  if kernels.LAUNCHES[name] != warm[name]}
+        self.captured = {name: n - after_warm[name] for name, n in kernels.LAUNCHES.items()
+                         if n != after_warm[name]}
         kernels.LAUNCHES.update(before)
-        self._graph = g
+        if keep_graph:
+            self.graph.instantiate()
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for name, n in self.captured.items():
+            kernels.LAUNCHES[name] += n
+
+    def nodes(self) -> Optional[int]:
+        """Nodes of the captured graph (kept with ``keep_graph``), from
+        libcuda's ``cuGraphGetNodes``; None where it cannot be read."""
+        try:
+            get = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+            get.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+            get.restype = ctypes.c_int
+            n = ctypes.c_size_t(0)
+            rc = get(self.graph.raw_cuda_graph(), None, ctypes.byref(n))
+            return int(n.value) if rc == 0 else None
+        except (OSError, AttributeError, RuntimeError):
+            return None
+
+    def seconds(self, n: int = 20, warm: int = 3, repeats: int = 3) -> float:
+        """Best over ``repeats`` of the host time of ``n`` back-to-back
+        replays, fenced by ``torch.cuda.synchronize``, per replay."""
+        for _ in range(warm):
+            self.replay()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                self.replay()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) / n)
+        return best

@@ -220,8 +220,11 @@ def att_flood_plain(stack, search_range: int, rows: int, cols: int, scale: int):
     bd2r = bd2[:rows]
     idf = torch.where(bd2r <= float(search_range * search_range),
                       st[2 * Rp:2 * Rp + rows], -1.0)
+    # |g| correctly rounded, as the kernel's __fsqrt_rn: the float32 sum's
+    # sqrt in float64, then rounded (PyTorch's float32 CPU sqrt is not
+    # correctly rounded, nor repeatable between processes)
     out = torch.stack([torch.zeros_like(bd2r), bd2r, idf, gx, gy,
-                       torch.sqrt(gx * gx + gy * gy),
+                       torch.sqrt((gx * gx + gy * gy).to(torch.float64)).to(f32),
                        st[Rp:Rp + rows] * float(scale), st[0:rows] * float(scale)])
     return out.reshape(8, rows * cols)
 

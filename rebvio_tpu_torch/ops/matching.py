@@ -329,8 +329,22 @@ def match_and_update_depth(new: T.EdgeMap, old: T.EdgeMap, vel, Rvel, Rback, fai
     (``fail_nan`` [] bool: the velocity is NaN) and, where the frame did not
     fail, regularization and the depth EKF (kernels.match_reg_ekf).  Returns
     (post-depth map, klm [] int32, failed [] bool), all on the device."""
+    return T.finish(match_and_update_depth_stages(new, old, vel, Rvel, Rback, fail_nan, cfg,
+                                                  core_cfg, cam, n_probes, field_scale,
+                                                  grad_rot2))
+
+
+def match_and_update_depth_stages(new: T.EdgeMap, old: T.EdgeMap, vel, Rvel, Rback, fail_nan,
+                                  cfg: EdgeMapConfig, core_cfg: CoreConfig, cam: CameraConfig,
+                                  n_probes: int = 0, field_scale: int = 1,
+                                  grad_rot2: torch.Tensor = None):
+    """``match_and_update_depth`` as a generator for the step's stages
+    (pipeline.STAGES): yields "directed_match" once the geometry and K4 are
+    issued, then issues K5 and returns what ``match_and_update_depth``
+    returns."""
     o, R_tot = _tube_match(new, old, vel, Rvel, Rback, cfg, core_cfg, cam, n_probes,
                            field_scale, grad_rot2)
+    yield "directed_match"
     p = kernels.MatchRegEkfParams(
         threshold=float(cfg.regularization_threshold), q_abs2=core_cfg.reshape_q_abs ** 2,
         pu2=float(core_cfg.pixel_uncertainty) ** 2, fm=cam.fm, cx=cam.cx, cy=cam.cy,

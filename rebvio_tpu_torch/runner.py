@@ -34,7 +34,7 @@ from rebvio_tpu_torch import resolve_device
 from rebvio_tpu_torch import types as T
 from rebvio_tpu_torch.camera import Undistorter
 from rebvio_tpu_torch.configs import PipelineConfig
-from rebvio_tpu_torch.graph import (ODO_WORDS, SlotLayout, StepProgram, copy_tree_,
+from rebvio_tpu_torch.graph import (ODO_WORDS, SlotLayout, StepProgram, np_dtype, copy_tree_,
                                     odometry_view, pack_trace, trace_words, unpack_trace)
 from rebvio_tpu_torch.parallel.batch import batched_step, init_batched_state
 from rebvio_tpu_torch.pipeline import (frontend_matrices, step_chunk, step_chunk_pipelined,
@@ -165,8 +165,10 @@ class VioRunner:
         key = (len(frames), mode)
         prog = self._programs.get(key)
         if prog is None:
-            image = np.asarray(frames[0][0])
-            layout = SlotLayout(len(frames), image.shape, image.dtype,
+            image = frames[0][0]
+            if not torch.is_tensor(image):
+                image = torch.from_numpy(np.asarray(image))
+            layout = SlotLayout(len(frames), image.shape, np_dtype(image.dtype),
                                 self.config.imu.sample_max)
             words = trace_words(self.config.detector.keylines_max) if mode == "traced" else 0
             prog = StepProgram(functools.partial(self._steps, mode=mode), layout, self.device,
@@ -192,8 +194,10 @@ class VioRunner:
 
     def process_frame(self, image, ts_us: int, imu_ts, imu_gyro, imu_acc) -> T.Odometry:
         """Process one frame given the entire IMU stream; the runner keeps a
-        cursor and consumes the samples with ts <= frame ts.  The odometry is
-        the runner's own copy (the next frame does not overwrite it)."""
+        cursor and consumes the samples with ts <= frame ts.  ``image``: host
+        memory, or a tensor already on the runner's card (copied on the
+        device into the staging slot).  The odometry is the runner's own
+        copy (the next frame does not overwrite it)."""
         packed = self._run(*self._stage([self._frame_inputs(image, ts_us, imu_ts, imu_gyro,
                                                             imu_acc)]))
         return odometry_view(packed[0])

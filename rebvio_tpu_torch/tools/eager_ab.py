@@ -9,7 +9,9 @@ Each mode warms up to the first frame with the SAB filter engaged, then
 times ``--rounds`` runs of ``--frames`` consecutive frames through
 ``VioRunner.process_frame`` (the stream continues from round to round), each
 run ended by a device synchronize.  Prints one JSON line: the ms per frame of
-each round and mode, the card's name and power limit.  It uses only entry
+each round and mode, each mode's peak device memory
+(``torch.cuda.max_memory_allocated`` from the runner's creation on, the
+graph's capture included), the card's name and power limit.  It uses only entry
 points that older checkouts have, so two checkouts can be timed on the same
 card one after the other: copy this file into the other checkout's
 ``tools/`` and run it there.  Needs a GPU.
@@ -47,6 +49,8 @@ def main(argv=None) -> dict:
     out = {"tool": "eager_ab", "card": card.stdout.strip(), "frames": args.frames,
            "warm_frames": warm}
     for mode, graph in (("eager", False), ("graph", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         runner = VioRunner(cfg, undistort=True, device="cuda", graph=graph)
 
         def frame(i):
@@ -64,6 +68,8 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize()
             rounds.append((time.perf_counter() - t0) / args.frames * 1e3)
         out[f"{mode}_ms_per_frame"] = rounds
+        out[f"{mode}_max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del runner
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

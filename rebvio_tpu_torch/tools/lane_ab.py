@@ -39,7 +39,7 @@ from rebvio_tpu_torch.ops.imu import pack_imu_window
 from rebvio_tpu_torch.parallel import batch as TB
 from rebvio_tpu_torch.pipeline import frontend_matrices, step
 
-_MATCHER = {"walk": "directed_match", "tube": "match_and_update_depth"}
+_MATCHER = {"walk": "directed_match", "tube": "match_and_update_depth_stages"}
 _MAP_PLANES = ("pos_img", "grad", "rho", "sigma_rho", "valid", "kl_id_img")
 
 

@@ -152,7 +152,7 @@ def main(argv=None) -> dict:
         chol_args.append(m.clone())
         return plain[2](m)
 
-    plain_stage, plain_tube = matching.match_and_update_depth, kernels.tube_match
+    plain_stage, plain_tube = matching.match_and_update_depth_stages, kernels.tube_match
     stage_args, tube_args = [], []
 
     def rec_stage(*a, **kw):
@@ -164,7 +164,7 @@ def main(argv=None) -> dict:
         return plain_tube(*a)
 
     tracker.minimize_vel, kernels.estimate_bias, linalg.chol_inverse = rec_solve, rec_sab, rec_chol
-    matching.match_and_update_depth, kernels.tube_match = rec_stage, rec_tube
+    matching.match_and_update_depth_stages, kernels.tube_match = rec_stage, rec_tube
     try:
         runner = VioRunner(vcfg, undistort=True, device="cuda", graph=False)   # eager: recorded
         for i in range(engaged):
@@ -172,7 +172,7 @@ def main(argv=None) -> dict:
                                  seq.imu_acc)
     finally:
         tracker.minimize_vel, kernels.estimate_bias, linalg.chol_inverse = plain
-        matching.match_and_update_depth, kernels.tube_match = plain_stage, plain_tube
+        matching.match_and_update_depth_stages, kernels.tube_match = plain_stage, plain_tube
     old, att, vel0, rest, kw = solves[-1]
     m7 = [m for m in chol_args if m.shape[-1] == 7][-1]
     H, W = old.kl_id_img.shape

@@ -32,6 +32,16 @@ class _TensorTree:
         return dataclasses.replace(self, **kw)
 
 
+def finish(stages):
+    """Run a generator to its end (the step's stage generators,
+    pipeline.STAGES); returns what it returns."""
+    while True:
+        try:
+            next(stages)
+        except StopIteration as done:
+            return done.value
+
+
 def tree_leaves(tree):
     """The tensors of a state dataclass, depth first in field order."""
     if isinstance(tree, _TensorTree):

@@ -3,11 +3,13 @@ reference's Timer macros, util/timer.hpp:18-74), printed on demand.  Free
 when disabled at run time.  The GPU runs asynchronously, so a section that
 covers device work names the device in ``sync``: the clock stops after
 ``torch.cuda.synchronize`` on it, so the section measures the work's
-completion, not its launch."""
+completion, not its launch.  Also a ``torch.profiler`` trace written as a
+Chrome trace (``device_trace``)."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict
@@ -53,3 +55,26 @@ def report() -> str:
 
 def reset() -> None:
     _ACC.clear()
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """A ``torch.profiler`` trace of the block (CPU activities, and CUDA
+    activities where a GPU is present), written into ``logdir`` as a Chrome
+    trace ``trace_<pid>_<ns>.json`` (chrome://tracing, Perfetto).  The JAX
+    package's ``device_trace`` writes the JAX profiler's xplane instead."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+

@@ -27,6 +27,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from torch_flood import normed  # noqa: E402
 from torch_helpers import (PALLAS_FLAGS, as_list, batched_args,  # noqa: E402
                            check_lanes_match_unbatched, check_plain_under_vmap,
                            check_repeated_lanes, emulated_launches, lane_inputs,
@@ -133,11 +134,22 @@ def try_vel_lanes(lanes):
 PLAIN_EXACT = {"att_flood", "tube_match", "match_reg_ekf", "chol_inverse"}
 
 
+def held(name):
+    """One lane's expected outputs: att_flood's gradient-norm plane (5), a
+    function of planes 3 and 4 alone, as the correctly rounded norm of the
+    expected planes 3 and 4 (torch_flood.normed, the kernel's __fsqrt_rn),
+    which the batched plane must equal bit for bit."""
+    if name != "att_flood":
+        return lambda outs: outs
+    return lambda outs: [normed(outs[0])] + list(outs[1:])
+
+
 @pytest.mark.parametrize("name", list(PLAIN))
 def test_plain_versions_under_vmap(kernel_lanes, name):
     lanes = try_vel_lanes(kernel_lanes) if name == "try_vel" else kernel_lanes
     args, dims, per = batched_args(lanes, name)
-    check_plain_under_vmap(lambda *a: PLAIN[name](*a), args, dims, per, name in PLAIN_EXACT)
+    check_plain_under_vmap(lambda *a: PLAIN[name](*a), args, dims, per, name in PLAIN_EXACT,
+                           held(name))
 
 
 WRAPPERS = {"att_flood": "att_flood", "minimize_vel": "minimize_vel", "try_vel": "try_vel",
@@ -169,8 +181,8 @@ def test_operator_vmap_rule_lanes(kernel_lanes, name):
         got = as_list(torch.func.vmap(lambda *a: fn(*a), in_dims=dims)(*args))
     assert len(calls) == 1, calls                  # one launch for all lanes
     for b in range(B):
-        for g, w in zip(got, want[b]):
-            assert torch.equal(g[b], w) or torch.equal(g[b].nan_to_num(), w.nan_to_num()), name
+        for g, w in zip([g[b] for g in got], held(name)(want[b])):
+            assert torch.equal(g, w) or torch.equal(g.nan_to_num(), w.nan_to_num()), name
 
 
 @pytest.mark.parametrize("case", ["batched@unbatched", "unbatched@batched",

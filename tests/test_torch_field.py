@@ -14,6 +14,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from torch_flood import norm  # noqa: E402
 from torch_helpers import SMALL_CAMERA, small_configs, t2n  # noqa: E402
 
 from rebvio_tpu.ops import distance_field as jDF, edge_detect as jED  # noqa: E402
@@ -50,8 +51,12 @@ def _compare_flood(stack, sr, rows, cols, scale):
     np.testing.assert_array_equal(out[exact], ref[exact])
     # d2 and |g| are sums of two squares: XLA:CPU contracts them into an FMA,
     # the port rounds the product first (as the CUDA kernel does with
-    # --fmad=false), so the two may differ by one float32 ulp
+    # --fmad=false), so the two may differ by one float32 ulp.  The port's
+    # |g| is also the correctly rounded norm of JAX's planes 3 and 4, bit for
+    # bit (torch_flood.norm, the kernel's __fsqrt_rn)
     np.testing.assert_allclose(out[[1, 5]], ref[[1, 5]], rtol=2.4e-7, atol=0)
+    gnorm = norm(torch.as_tensor(ref[3]), torch.as_tensor(ref[4])).numpy()
+    np.testing.assert_array_equal(out[5].view(np.int32), gnorm.view(np.int32))
     return out
 
 
@@ -176,7 +181,12 @@ def test_build_att_field_vs_jax_jfa_state(monkeypatch, scale):
         mismatch += abs(dg - dw) > 0.6
     assert mismatch <= 0.002 * frows * fcols, mismatch
     # the attribute planes of every cell are those of the keyline it names
-    # (the gradient norm recomputed by the flood within an ulp of the map's)
+    # (the gradient norm recomputed by the flood within an ulp of the map's;
+    # the port's bit for bit the correctly rounded norm of the keyline's
+    # gradient, torch_flood.norm, as the kernel's __fsqrt_rn)
+    k = gid >= 0
+    gn = norm(torch.as_tensor(grad[gid[k], 0]), torch.as_tensor(grad[gid[k], 1])).numpy()
+    np.testing.assert_array_equal(got[5][k].view(np.int32), gn.view(np.int32))
     for field, ids in ((got, gid), (want, wid)):
         k = ids >= 0
         np.testing.assert_array_equal(field[3][k], grad[ids[k], 0])

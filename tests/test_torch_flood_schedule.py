@@ -1,7 +1,8 @@
 """The schedule of K1's kernel (``kernels.flood_schedule``, which the
 wrapper hands to csrc/flood.cu) and an emulation of the kernel's two phases,
 held to ``att_flood_plain``: seven planes bit for bit, the gradient norm
-within one ulp (see ``_assert_same_field``).
+bit for bit against the correctly rounded norm of its planes 3 and 4
+(see ``torch_flood.assert_same_field``).
 
 The kernel runs only on the card.  The emulation repeats its design in
 PyTorch: a state of (sy, sx, src) per cell, src indexing the virtual grid

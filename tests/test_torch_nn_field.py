@@ -18,6 +18,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from torch_flood import norm  # noqa: E402
 from torch_helpers import make_random_map, map_from_table, t2n  # noqa: E402
 
 from rebvio_tpu.ops import distance_field as jDF  # noqa: E402
@@ -35,11 +36,15 @@ def _att_both(jem, tem, R, H, W, scale):
 def _assert_att_equal(out, ref):
     # ids exact; float planes at tests/test_nn_field.py's tolerance (measured:
     # seeds, gradients and positions equal, d2 and |g| within one float32 ulp,
-    # XLA:CPU contracting the sums of two squares into an FMA)
+    # XLA:CPU contracting the sums of two squares into an FMA).  The port's
+    # |g| is also the correctly rounded norm of JAX's planes 3 and 4, bit for
+    # bit (torch_flood.norm, the kernel's __fsqrt_rn)
     np.testing.assert_array_equal(out[tDF.ATT_ID], ref[tDF.ATT_ID])
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-5)
     exact = [0, 2, 3, 4, 6, 7]
     np.testing.assert_array_equal(out[exact], ref[exact])
+    gnorm = norm(torch.as_tensor(ref[3]), torch.as_tensor(ref[4])).numpy()
+    np.testing.assert_array_equal(out[5].view(np.int32), gnorm.view(np.int32))
 
 
 def _cells(tem, scale, frows, fcols):

@@ -114,7 +114,9 @@ def test_port_imports_no_jax():
                    "ba/problem.py", "ba/distributed.py", "utils/checkpoint.py",
                    "utils/timing.py", "utils/logging.py", "utils/visualize.py",
                    "tools/jfa_ab.py", "data/euroc.py", "data/native_loader.py",
-                   "parallel/batch.py", "parallel/keyline_shard.py", "parallel/multihost.py"):
+                   "parallel/batch.py", "parallel/keyline_shard.py", "parallel/multihost.py",
+                   "bench.py", "tools/roofline.py", "tools/profile_stages.py",
+                   "tools/scaling_bench.py"):
         assert "rebvio_tpu_torch/" + module in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), str(path))

@@ -149,14 +149,12 @@ def test_public_helper_matches_jax(case):
 
 
 # JAX names with no counterpart of the same name, by design (ROADMAP Queue
-# 1): the Pallas kernels (ops/kernels.py and csrc/ hold theirs), the mesh
-# placement helpers (the port's take a torch.distributed group) and the
-# JAX profiler's trace (profile_step serves)
+# 1): the Pallas kernels (ops/kernels.py and csrc/ hold theirs) and the mesh
+# placement helpers (the port's take a torch.distributed group)
 HELD_BY_DESIGN = {
     "ops/pallas_kernels.py": None,                  # the whole module
     "ba/distributed.py": {"make_distributed_optimize", "place"},
     "parallel/keyline_shard.py": {"make_kl_mesh"},
-    "utils/timing.py": {"device_trace"},
 }
 
 

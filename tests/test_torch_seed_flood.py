@@ -10,8 +10,8 @@ on the schedule ``kernels.flood_schedule`` hands the kernel, its state
 pad rows synthesised: the region's own sentinel below the data, the rotated
 one (0, BIG, BIG, -1, 0) above row 0.  Every plane bit for bit: seven
 against the plain version, the gradient norm against the correctly rounded
-sqrt of the plain version's gx, gy (the kernel's __fsqrt_rn; PyTorch's CPU
-sqrt, which the plain version takes, is not always repeatable).  No JAX:
+sqrt of the plain version's gx, gy (the kernel's __fsqrt_rn, which the
+plain version also gives).  No JAX:
 the plain version is held to ``att_field_pallas`` by
 tests/test_torch_nn_field.py."""
 

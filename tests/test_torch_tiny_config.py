@@ -108,15 +108,16 @@ def _jax_run(jc, frames, wins, dts, record=False):
 
 def _port_run(tc, frames, wins, dts, mp=None):
     """The port's step over the frames; with ``mp`` the matcher's inputs at
-    every estimate (match_and_update_depth's arguments)."""
+    every estimate (match_and_update_depth's arguments, which the step passes
+    to its stage generator match_and_update_depth_stages)."""
     calls = []
     if mp is not None:
-        stage = TM.match_and_update_depth
+        stage = TM.match_and_update_depth_stages
 
         def rec(*a, **kw):
             calls.append((a, kw))
             return stage(*a, **kw)
-        mp.setattr(TM, "match_and_update_depth", rec)
+        mp.setattr(TM, "match_and_update_depth_stages", rec)
     mats = TP.frontend_matrices(tc, "cpu")
     st, rows = tT.init_vio_state(tc, device="cpu"), []
     for i in range(len(frames)):

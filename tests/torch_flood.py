@@ -122,9 +122,18 @@ EXACT_PLANES = [0, 1, 2, 3, 4, 6, 7]
 
 
 def assert_same_field(got: torch.Tensor, want: torch.Tensor):
-    """Seven planes bit for bit; the gradient norm (plane 5), a function of
-    planes 3 and 4 alone, within one float32 ulp: PyTorch's CPU sqrt of
-    ``gx*gx + gy*gy`` is not repeatable in the last bit (the plain version
-    differs from itself between runs)."""
+    """Seven planes bit for bit; the gradient norm (plane 5, a function of
+    planes 3 and 4 alone) of both, bit for bit, the correctly rounded norm
+    of the plain version's planes 3 and 4 (the kernel's __fsqrt_rn; the
+    plain version takes its float32 sum's sqrt in float64, as PyTorch's
+    float32 CPU sqrt is not correctly rounded)."""
     assert torch.equal(bits(got[EXACT_PLANES]), bits(want[EXACT_PLANES]))
-    torch.testing.assert_close(got[5], want[5], rtol=2.4e-7, atol=0)
+    assert torch.equal(bits(got[5]), bits(norm(want[3], want[4])))
+    assert torch.equal(bits(want[5]), bits(norm(want[3], want[4])))
+
+
+def normed(field: torch.Tensor) -> torch.Tensor:
+    """An [8, N] field with its gradient-norm plane (5) replaced by the
+    correctly rounded norm of planes 3 and 4 (``norm``): what the kernels
+    give on the card (__fsqrt_rn) and the plain versions everywhere."""
+    return torch.cat([field[:5], norm(field[3], field[4])[None], field[6:]])

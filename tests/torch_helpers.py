@@ -399,16 +399,16 @@ def as_list(out):
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
-def check_plain_under_vmap(fn, args, dims, per, exact: bool):
+def check_plain_under_vmap(fn, args, dims, per, exact: bool, held=lambda outs: outs):
     """``fn`` under vmap against one call a lane: bit for bit where
     ``exact`` (and for ids and counts everywhere), else within 1e-5 of each
     output's largest finite entry (a batched matrix product may sum in
-    another order)."""
+    another order).  ``held`` maps one lane's expected outputs (the
+    unbatched call's) before the batched ones are compared with them."""
     got = as_list(torch.func.vmap(fn, in_dims=dims)(*args))
     for b, p in enumerate(per):
-        want = as_list(fn(*p))
-        for g, w in zip(got, want):
-            g = g[b]
+        want = held(as_list(fn(*p)))
+        for g, w in zip([g[b] for g in got], want):
             if exact or not g.is_floating_point():
                 assert torch.equal(g, w) or (g.is_floating_point() and
                                              torch.equal(g.isnan(), w.isnan()) and
