@@ -1,9 +1,17 @@
 """Shared helpers of the port's CPU tests: the same inputs through the JAX
-package and through rebvio_tpu_torch (device="cpu", plain versions)."""
+package and through rebvio_tpu_torch (device="cpu", plain versions).
+
+Imported in a pytest-xdist worker, this module also gives the worker its
+share of the CPUs for PyTorch's OpenMP (intra-op), MKL and inter-op pools.
+Left at their default, every worker spins up one thread per CPU for each
+parallel op, and the port's many small CPU ops then wait on each other's
+threads. XLA's own CPU thread pool is left as it is: narrowing it made the
+suite slower."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -12,6 +20,32 @@ import torch
 import rebvio_tpu.configs as jcfg
 import rebvio_tpu_torch.configs as tcfg
 from rebvio_tpu_torch import interop
+
+
+def thread_budget(cpu_max: str = "/sys/fs/cgroup/cpu.max") -> int:
+    """CPU threads for one test process: the CPUs this process may use (the
+    affinity mask, lowered to the cgroup v2 quota in ``cpu_max``, which is
+    only read) split evenly over the xdist workers, at least one."""
+    n_cpus = len(os.sched_getaffinity(0))
+    try:
+        with open(cpu_max) as f:
+            quota, period = f.read().split()
+    except OSError:
+        quota = "max"
+    if quota != "max":
+        n_cpus = min(n_cpus, max(1, int(quota) // int(period)))
+    return max(1, n_cpus // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
+
+# Every xdist worker collects every test file, so this runs before its first
+# test (the controller runs no test and never imports this module). The
+# variables are assigned outright, not kept from the controller's
+# environment, and subprocesses that tests start inherit them.
+THREAD_BUDGET = thread_budget() if os.environ.get("PYTEST_XDIST_WORKER") else None
+if THREAD_BUDGET is not None:
+    os.environ["OMP_NUM_THREADS"] = os.environ["MKL_NUM_THREADS"] = str(THREAD_BUDGET)
+    torch.set_num_threads(THREAD_BUDGET)
+    torch.set_num_interop_threads(THREAD_BUDGET)
 
 PALLAS_FLAGS = ("JFA", "TRYVEL", "TUBE", "REGEKF")
 
