@@ -40,8 +40,13 @@ Phases (any failure exits non-zero):
      torch.cuda.set_sync_debug_mode("error") (no host sync allowed); the
      Cholesky inverse (csrc/chol_inverse.cu, no TPU kernel behind it) on the
      three matrices a VIO frame inverts and on one that is not positive
-     definite; then the single-pass entry point tracker.try_vel driven over
-     the frame pair with the counters set to 0 before it.  On the
+     definite; the frontend's seven band products (csrc/band_matmul.cu, no
+     TPU kernel behind it either; tools/band_check.py) on the operands of
+     parity detections, one lane: against the dense product a @ b (cuBLAS)
+     bit for bit (a product that is not is named with the dense product's
+     kernels), its device ms beside its bound and the dense product's; then
+     the single-pass entry point tracker.try_vel driven over the frame pair
+     with the counters set to 0 before it.  On the
      reference-semantics path (phase 8's configuration, frame 1 of the VO
      stream) also minimize_vel on the full-resolution raster table
      (tracker.raster_att, field_scale 1) and reg_ekf alone on the
@@ -127,16 +132,19 @@ Phases (any failure exits non-zero):
      kernel launched once a batched step with a lane axis): eager, its steps
      under set_sync_debug_mode("error"), then one CUDA graph a batched step,
      bit-identical, counters as in 3 (K1, K2, K3, K4, K5 one call a batched
-     step, K5's two launches, chol_inverse three); no op through vmap's
-     per-lane fallback; lanes 5-7 equal lanes 0-2 bit for bit; each lane
+     step, K5's two launches, chol_inverse three, band_matmul seven); no op
+     through vmap's per-lane fallback; lanes 5-7 equal lanes 0-2 bit for bit; each lane
      within VIO_BOUNDS of its stream's unbatched graphed run (phases 4, 7)
      and inside its reference-binary golden's bound; each batched kernel,
      torch.func.vmap of its wrapper on the recorded [8, ...] inputs of one
      batched step (frame 16, the SAB filter engaged), against its plain
      version under vmap lane by lane at phase 2's tolerances and against 8
      one-lane calls bit for bit, with its time, 8x its one-lane bound and
-     the plain version's time; the CLI's --dataset euroc on an ASL-format
-     tree of phase 4's seed-0 stream (uint8 frames, rows cycling through the
+     the plain version's time; the seven band products over 8 lanes of
+     parity detections under torch.func.vmap (one launch each) against 8
+     one-lane launches bit for bit, on lanes with a lane stride, and against
+     each lane's a @ b as in phase 2; the CLI's --dataset euroc on an
+     ASL-format tree of phase 4's seed-0 stream (uint8 frames, rows cycling through the
      five PNG filters, IMU, ground truth; tests/torch_asl.py) with --loader
      python and --loader native (built from
      native/loader.cpp; a failed build is reported with the compiler's
@@ -396,6 +404,7 @@ MV_TOL = dict(vel_abs=1e-5, vel_rel=1e-3, gram_rel=1e-4, score_rel=1e-4, res_abs
 # rounding of the two sqrt / division implementations (1e-6 relative to the
 # inverse's largest entry is allowed; 0 is expected), NaN in the same places
 CHOL_TOL_REL = 1e-6
+BAND_PRODUCTS = 7       # band products a detection: kernels.band_matmul's launches
 
 
 def anchor_stream(kw: dict, n: int):
@@ -1304,15 +1313,37 @@ def drive_batched(np, torch, kernels, VioRunner, cfg, seqs, launchers, phase: in
                 recorded=recorded)
 
 
+def band_lines(rows, phase: str):
+    """Prints the band products' lines (tools/band_check.py) and their
+    totals; returns an error or None.  The launch over the lanes must equal
+    one-lane launches, with a lane stride too, and each lane's a @ b, bit
+    for bit; the products that do not equal a @ b are named with the dense
+    product's kernels."""
+    from rebvio_tpu_torch.tools import band_check
+
+    for r in rows:
+        print(json.dumps({"check": "band_matmul (csrc/band_matmul.cu) vs the dense product "
+                                   "a @ b", **r}), flush=True)
+    print(json.dumps({"kernel": "band_matmul", "products": len(rows), **band_check.totals(rows),
+                      "dense_kernels_not_bit_equal": {r["product"]: r["dense_kernels"]
+                                                      for r in rows
+                                                      if not r["bit_equal_dense"]}}), flush=True)
+    bad = [r["product"] for r in rows
+           if not (r["equal_one_lane_launches"] and r["equal_strided_lanes"]
+                   and r["bit_equal_dense"])]
+    return f"{phase}: band_matmul against one-lane launches or a @ b: {bad}" if bad else None
+
+
 def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, bounds,
-            solve_args, mv_args, map1, cfg):
+            solve_args, mv_args, map1, cfg, band_inputs):
     """Phase 10 of the module docstring.  ``streams`` / ``anchor_runs``: the
     five parity VIO streams and their graphed runs (phases 4, 7);
     ``unbatched_ms``: phase 4's graphed ms/frame; ``bounds``: phase 2's
     (bound_ms, bound_by) of each kernel at one lane's shapes;
     ``solve_args``: the (old map, field) of phase 2's frame-1 LM solve and
     ``mv_args`` its kernels.minimize_vel arguments, ``map1`` the frame-1 map,
-    ``cfg`` the VO config.  Returns
+    ``cfg`` the VO config, ``band_inputs`` phase 2's (matrices, operands)
+    of the band products.  Returns
     (error or None, the batched kernels' report lines, the graphed batched
     run's launch counts)."""
     import contextlib
@@ -1326,6 +1357,7 @@ def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, 
     from rebvio_tpu_torch.parallel import keyline_shard, multihost
     from rebvio_tpu_torch.profile_step import main as profile_main
     from rebvio_tpu_torch.runner import VioRunner
+    from rebvio_tpu_torch.tools import band_check
     from tests.torch_asl import write_asl_tree
 
     seqs = [streams[name] for name in BATCH_LANES]
@@ -1339,7 +1371,8 @@ def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, 
     same_eager, repeated = run["graph_equals_eager"], run["repeated_lanes_equal"]
     graph_s, eager_ms = run["graph_s"], run["eager_ms"]
     want = {**{k: 0 for k in kernels.LAUNCHES}, "att_flood": n, "minimize_vel": n,
-            "tube_match": n, "reg_ekf": n, "estimate_bias": n, "chol_inverse": 3 * n}
+            "tube_match": n, "reg_ekf": n, "estimate_bias": n, "chol_inverse": 3 * n,
+            "band_matmul": BAND_PRODUCTS * n}
     lanes, bad = [], []
     for b, (name, r) in enumerate(zip(BATCH_LANES, res)):
         unb = anchor_runs[name]
@@ -1394,6 +1427,9 @@ def phase10(np, torch, kernels, card, vcfg, streams, anchor_runs, unbatched_ms, 
 
     # ---- each batched kernel on the recorded lanes
     err, entries = batched_kernels(torch, kernels, recorded, bounds, card)
+    if err:
+        return err, None, None
+    err = band_lines(band_check.check(*band_inputs, BATCH), "phase 10")
     if err:
         return err, None, None
 
@@ -1574,7 +1610,7 @@ def phase11(np, torch, kernels, card, streams, bounds):
         return run, None, None
     res, st, launches = run["res"], run["state"], run["launches"]
     want = {**{k: 0 for k in kernels.LAUNCHES}, "minimize_vel": n, "reg_ekf_alone": n,
-            "estimate_bias": n, "chol_inverse": 3 * n}
+            "estimate_bias": n, "chol_inverse": 3 * n, "band_matmul": BAND_PRODUCTS * n}
     lanes, bad = [], []
     for b, (name, r) in enumerate(zip(BATCH_LANES, res)):
         unb = unbatched[name]
@@ -1723,7 +1759,7 @@ def phase12(torch, kernels, card):
     if over:
         return f"phase 12: ceiling fractions above {CEILING_MAX}: {over}"
     want = ("att_flood", "minimize_vel", "tube_match", "reg_ekf", "estimate_bias",
-            "chol_inverse", "try_vel", "att_field")
+            "chol_inverse", "try_vel", "att_field", "band_matmul")
     if not all(launches.get(k, 0) > 0 for k in want):
         return f"phase 12: the bench launched {launches}, needs each of {want}"
 
@@ -1803,7 +1839,7 @@ def smoke(np, torch, jobs) -> int:
     from rebvio_tpu_torch.geometry import linalg, so3
     from rebvio_tpu_torch.ops import matching, tracker
     from rebvio_tpu_torch.runner import RunResult, VioRunner
-    from rebvio_tpu_torch.tools import jfa_ab
+    from rebvio_tpu_torch.tools import band_check, jfa_ab
 
     dev = torch.device("cuda")
     # ---------------- phase 1: device and build
@@ -2184,6 +2220,12 @@ def smoke(np, torch, jobs) -> int:
     chol["plain_ms"] = median_ms(torch, lambda: linalg.chol_inverse_plain(m7))
     print(json.dumps(chol), flush=True)
 
+    # the frontend's band products (no TPU kernel behind them: their own lines)
+    band_inputs = band_check.parity_operands(BATCH, dev)
+    err = band_lines(band_check.check(*band_inputs, 1), "phase 2")
+    if err:
+        return fail(err)
+
     # bound: least bytes (each input read once, each output written once;
     # gathered field/neighbour values counted per access) and float32 ops
     st, sr, rows, cols, _ = cases["att_flood"][0][1]
@@ -2275,7 +2317,7 @@ def smoke(np, torch, jobs) -> int:
     want = {"att_flood": N_FRAMES, "try_vel": 0, "minimize_vel": N_FRAMES,
             "tube_match": N_FRAMES, "reg_ekf": N_FRAMES, "reg_ekf_alone": 0,
             "estimate_bias": 0, "att_field": 0,
-            "nn_field": 0, "chol_inverse": N_FRAMES}
+            "nn_field": 0, "chol_inverse": N_FRAMES, "band_matmul": BAND_PRODUCTS * N_FRAMES}
     if launches != want:
         return fail(f"launch counts {launches}, expected {want}")
     if res.position.shape != (N_FRAMES, 3) or not np.isfinite(res.position).all():
@@ -2339,7 +2381,7 @@ def smoke(np, torch, jobs) -> int:
     want = {"att_flood": N_VIO, "try_vel": 0, "minimize_vel": est,
             "tube_match": est, "reg_ekf": est, "reg_ekf_alone": 0, "estimate_bias": est,
             "att_field": 0,
-            "nn_field": 0, "chol_inverse": 3 * est}
+            "nn_field": 0, "chol_inverse": 3 * est, "band_matmul": BAND_PRODUCTS * N_VIO}
     if vlaunches != want or vmodes["launches"] != want:
         return fail(f"VIO launch counts {vlaunches}, expected {want}")
     g, gK, gg = read_vio_golden(VIO_GOLDEN)
@@ -2511,7 +2553,7 @@ def smoke(np, torch, jobs) -> int:
     want = {"att_flood": 0, "att_field": 2 * n_pairs, "try_vel": 0,    # K1b: one launch
             "minimize_vel": n_pairs * 4,        # four registration rounds a pair
             "tube_match": 0, "reg_ekf": 0, "reg_ekf_alone": 0, "estimate_bias": 0,
-            "nn_field": 0, "chol_inverse": 0}
+            "nn_field": 0, "chol_inverse": 0, "band_matmul": 0}
     if lcl != want or len(reg_log) != n_pairs:
         return fail(f"loop-closure launch counts {lcl}, expected {want} for {n_pairs} pairs")
 
@@ -2579,7 +2621,8 @@ def smoke(np, torch, jobs) -> int:
     calls = jfa_ab.CALLS + jfa_ab.WARM + jfa_ab.PROFILED
     want = {"nn_field": calls, "att_field": calls, "att_flood": calls, "try_vel": 0,
             "minimize_vel": 0, "tube_match": 0, "reg_ekf": 0, "reg_ekf_alone": 0,
-            "estimate_bias": 0, "chol_inverse": 0}
+            "estimate_bias": 0, "chol_inverse": 0,
+            "band_matmul": 2 * BAND_PRODUCTS}      # the tool's two detections
     print(json.dumps({"slice": "field tool, fast profile (8192 keylines, field 240x376)",
                       "us_per_call_events_host_device_and_activities": {k: list(v) for k, v in tool.items()},
                       "launches": tl}), flush=True)
@@ -2675,7 +2718,8 @@ def smoke(np, torch, jobs) -> int:
         launches = modes["launches"]
         vio = c.use_imu
         want = {**{k: 0 for k in launches}, "minimize_vel": n, "reg_ekf_alone": n,
-                "chol_inverse": 3 * n if vio else n, "estimate_bias": n if vio else 0}
+                "chol_inverse": 3 * n if vio else n, "estimate_bias": n if vio else 0,
+                "band_matmul": BAND_PRODUCTS * n}
         if launches != want:
             return fail(f"{label} launch counts {launches}, expected {want}")
         rw_launches_graph = launches       # K5 alone's count on its path (the last, VIO)
@@ -2747,7 +2791,7 @@ def smoke(np, torch, jobs) -> int:
     # keyline-sharded tracking and the pod mesh
     err, batched, blaunches = phase10(np, torch, kernels, card, vcfg, streams, anchor_runs,
                                       vmodes["graph_ms"], b, vo_solve,
-                                      cases["minimize_vel"][0][1], map1, cfg)
+                                      cases["minimize_vel"][0][1], map1, cfg, band_inputs)
     if err:
         return fail(err)
 

@@ -16,8 +16,10 @@ def lane_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b``; under torch.func.vmap one product a lane
     (``_lane_matmul_lanes``), so that a lane of the batched step
     (parallel/batch.py) sums as the unbatched step does.  For the products
-    whose summation order moves the trajectory: the frontend's band
-    products and the refinement's Gram over all keylines."""
+    whose summation order moves the trajectory: the refinement's Gram over
+    all keylines (ops/tracker.py), and on the CPU the frontend's band
+    products (kernels.band_matmul_plain; on the card csrc/band_matmul.cu
+    keeps a lane's order itself)."""
     return a @ b
 
 

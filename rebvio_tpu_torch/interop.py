@@ -16,6 +16,7 @@ import torch
 
 from rebvio_tpu_torch import resolve_device
 from rebvio_tpu_torch import types as T
+from rebvio_tpu_torch.ops import scale_space
 from rebvio_tpu_torch.ops.scale_space import FrontendMatrices
 
 _NESTED = {"edge_map": T.EdgeMap, "imu_state": T.ImuState, "sab_state": T.SabState}
@@ -46,9 +47,10 @@ def imu_frame_from_numpy(d: dict, device="cuda") -> T.ImuFrameData:
 
 
 def matrices_from_numpy(d: dict, device="cuda") -> FrontendMatrices:
-    dev = resolve_device(device)
-    return FrontendMatrices(**{k: torch.as_tensor(np.array(d[k], np.float32)).to(dev)
-                               for k in FrontendMatrices._fields})
+    """The JAX package's seven band operators (by name) on ``device``, with
+    their bands."""
+    return scale_space.upload({k: np.array(d[k], np.float32) for k in scale_space.OPERATORS},
+                              device)
 
 
 def pose_graph_from_numpy(d: dict, device="cuda"):
@@ -74,7 +76,7 @@ def ba_problem_from_numpy(d: dict, device="cuda"):
 def to_numpy(obj) -> dict:
     """A port dataclass (or NamedTuple of tensors) as a nested dict of numpy
     arrays."""
-    if hasattr(obj, "_asdict"):    # FrontendMatrices, PoseGraph, BAProblem, BATerms
+    if hasattr(obj, "_asdict"):    # PoseGraph, BAProblem, BATerms
         return {k: None if v is None else v.cpu().numpy() for k, v in obj._asdict().items()}
     out = {}
     for f in dataclasses.fields(obj):

@@ -24,14 +24,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rebvio_kernels"
 SOURCES = ("flood.cu", "try_vel.cu", "tube_match.cu", "reg_ekf.cu", "sab.cu",
-           "seed_scatter.cu", "nn_flood.cu", "chol_inverse.cu")
+           "seed_scatter.cu", "nn_flood.cu", "chol_inverse.cu", "band_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB = None
 BUILD_INFO = {"seconds": None, "path": None, "ptxas": ""}
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "rk_att_flood": [P, P, P, I, I, I, I, I, F, P, I, I, I, I, P],
     "rk_att_flood_max_blocks": [],
@@ -50,6 +50,7 @@ _SIGNATURES = {
     "rk_nn_cluster_occupancy": [I] * 5,
     "rk_nn_cluster": [P] * 3 + [I] * 10 + [P],
     "rk_chol_inverse": [P, P, I, I, P],
+    "rk_band_matmul": [P, L, P, P, P, I, P, P, I, I, I, I, I, I, P],
 }
 
 

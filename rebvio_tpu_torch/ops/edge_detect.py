@@ -58,13 +58,13 @@ def _detect_core(image, threshold, mats: FrontendMatrices, cfg: EdgeDetectorConf
 
     sxx = float((2 * pfs + 1) * sum(i * i for i in range(-pfs, pfs + 1)))
     sign_map = torch.where(dog > 0.0, 1.0, -1.0)
-    dogXW = mxu_dot(dog, mats.XW, bf16)
-    lcat = mxu_dot(mats.S5H, torch.cat([sign_map, dog, dogXW], dim=1), bf16)
+    dogXW = mxu_dot(mats, "XW", dog, bf16)
+    lcat = mxu_dot(mats, "S5H", torch.cat([sign_map, dog, dogXW], dim=1), bf16)
     S5Hsign = lcat[:, :W]
     S5Hdog = lcat[:, W:2 * W]
     t0 = lcat[:, 2 * W:] / sxx
-    YHdog = mxu_dot(mats.YH, dog, bf16)
-    rcat = mxu_dot(torch.cat([S5Hsign, S5Hdog, YHdog], dim=0), mats.S5W, bf16)
+    YHdog = mxu_dot(mats, "YH", dog, bf16)
+    rcat = mxu_dot(mats, "S5W", torch.cat([S5Hsign, S5Hdog, YHdog], dim=0), bf16)
     pn = rcat[:H]
     t2 = rcat[H:2 * H] / float(n_win)
     t1 = rcat[2 * H:] / sxx

@@ -13,6 +13,7 @@ launch counters.
 | estimate_bias | csrc/sab.cu         | estimate_bias_pallas (K3)                   |
 | att_field   | csrc/flood.cu         | att_field_pallas (K1b): seeding and flood, one launch |
 | nn_field    | csrc/seed_scatter.cu, csrc/nn_flood.cu | nn_field_pallas (K7)       |
+| band_matmul | csrc/band_matmul.cu   | none: the frontend's band-operator products |
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and launches on the current stream.  A tensor
@@ -21,11 +22,14 @@ outputs); a CUDA tensor launches the kernel or raises.  ``LAUNCHES[name]``
 counts the wrapper's kernel launches (a multi-kernel call counts once;
 ``reg_ekf`` counts the fused stage, ``reg_ekf_alone`` K5 alone).
 ``chol_inverse`` (csrc/chol_inverse.cu, launched by geometry/linalg.py)
-replaces no TPU kernel and is counted here too.
+and ``band_matmul`` (csrc/band_matmul.cu, the frontend's band-operator
+products, which JAX leaves to XLA) replace no TPU kernel and are counted
+here too.
 
 On the card the step's kernels (att_flood, minimize_vel / try_vel,
-tube_match, match_reg_ekf, reg_ekf, estimate_bias, chol_inverse) are reached through
-PyTorch operators (``torch.ops.rebvio.*``) with a vmap rule: under
+tube_match, match_reg_ekf, reg_ekf, estimate_bias, chol_inverse,
+band_matmul) are reached through PyTorch operators
+(``torch.ops.rebvio.*``) with a vmap rule: under
 ``torch.func.vmap`` (parallel/batch.py) each launches ONCE over all B lanes,
 its inputs [B, ...], as ``jax.vmap`` of a ``pallas_call`` adds a grid axis.
 Each kernel takes a lane count and keeps its arithmetic per lane, so a lane
@@ -48,7 +52,7 @@ from rebvio_tpu_torch.ops import _build
 
 LAUNCHES = {"att_flood": 0, "try_vel": 0, "minimize_vel": 0, "tube_match": 0, "reg_ekf": 0,
             "reg_ekf_alone": 0, "estimate_bias": 0, "att_field": 0, "nn_field": 0,
-            "chol_inverse": 0}
+            "chol_inverse": 0, "band_matmul": 0}
 
 f32, i32 = torch.float32, torch.int32
 
@@ -1137,6 +1141,119 @@ def estimate_bias_plain(a_s, a_v, x_p, W_rest, Rs, Rv, Wvw, Xvw, g_gravit, iters
 
 
 # --------------------------------------------------------------------------
+# The frontend's band-operator products (ops/scale_space.py::mxu_dot)
+
+BAND_TILE_LINES = 32    # csrc/band_matmul.cu kLines: the band lines a block takes
+BAND_MAX_SPLITS = 8     # the most partial sums band_library_splits tries
+
+
+class Band(NamedTuple):
+    """The band of a band operator (ops/scale_space.py builds it from the
+    float32 matrix).  A line is an output row of ``L @ X`` (``left``) or an
+    output column of ``X @ R``; ``k0`` [lines] int32 is its first k,
+    ``coef`` [lines, taps] float32 the matrix's entries at k0 .. k0 + taps - 1
+    (zeros inside the band kept), ``tiles`` [n, 3] int32 the blocks' runs of
+    lines (band_tiles), ``left``, ``depth`` the matrix's k extent, ``splits``
+    [1] int32 the partial sums an output is summed in (band_library_splits;
+    1 off the card)."""
+    k0: torch.Tensor
+    coef: torch.Tensor
+    tiles: torch.Tensor
+    left: bool
+    depth: int
+    splits: torch.Tensor
+
+
+def band_tiles(k0, taps: int) -> list:
+    """csrc/band_matmul.cu's blocks: the lines cut, in order, into runs of at
+    most BAND_TILE_LINES whose k ranges (k0 .. k0 + taps) span at most
+    BAND_TILE_LINES + taps - 1, the rows a block stages.  A run ends early
+    where one more line would pass that span, as where the stacked cascades'
+    second half starts again at k = 0.  Returns [(first line, lines, first k
+    staged), ...]."""
+    cap = BAND_TILE_LINES + taps - 1
+    tiles, first = [], 0
+    while first < len(k0):
+        lo, hi, end = int(k0[first]), int(k0[first]) + taps, first + 1
+        while end < len(k0) and end - first < BAND_TILE_LINES:
+            lo2, hi2 = min(lo, int(k0[end])), max(hi, int(k0[end]) + taps)
+            if hi2 - lo2 > cap:
+                break
+            lo, hi, end = lo2, hi2, end + 1
+        tiles.append((first, end - first, lo))
+        first = end
+    return tiles
+
+
+def band_library_splits(dense: torch.Tensor, band: Band, shape) -> torch.Tensor:
+    """[1] int32 on ``dense``'s device: the least S of 1 .. BAND_MAX_SPLITS
+    for which csrc/band_matmul.cu's result equals the library's dense
+    product bit for bit on a random operand of ``shape`` (the product's
+    own); 1 where none does.  The library's SGEMM picks its split of k by
+    the shape and strides, so this is read once a product, at set-up; it
+    reads nothing back to the host and counts no launch."""
+    dev = dense.device
+    x = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    want = dense @ x if band.left else x @ dense
+    found = torch.ones((1,), dtype=i32, device=dev)
+    for s in range(BAND_MAX_SPLITS, 0, -1):
+        trial = torch.full((1,), s, dtype=i32, device=dev)
+        got = _launch_band_matmul(x[None], band.k0, band.coef, band.tiles, trial, band.left,
+                                  count=False)[0]
+        found = torch.where((got == want).all(), trial, found)
+    return found
+
+
+def band_matmul(x: torch.Tensor, dense: torch.Tensor, band: Band) -> torch.Tensor:
+    """``dense @ x`` for a left band operator, ``x @ dense`` for a right one
+    (``band``: the band of ``dense``).  On the card one launch of
+    csrc/band_matmul.cu that visits only the band, in the library's
+    summation order for the product (band_library_splits); on the CPU the
+    dense product (band_matmul_plain)."""
+    if x.ndim != 2 or x.shape[-2 if band.left else -1] != band.depth:
+        raise ValueError(f"band_matmul: x {tuple(x.shape)} does not meet a "
+                         f"{'left' if band.left else 'right'} operator of depth {band.depth}")
+    if not _on_cuda(x, band.coef):
+        return band_matmul_plain(x, dense, band.left)
+    return torch.ops.rebvio.band_matmul(x, band.k0, band.coef, band.tiles, band.splits,
+                                        band.left)
+
+
+def band_matmul_plain(x: torch.Tensor, dense: torch.Tensor, left: bool) -> torch.Tensor:
+    """The dense product, one a lane under vmap (linalg.lane_matmul)."""
+    from rebvio_tpu_torch.geometry.linalg import lane_matmul
+
+    return lane_matmul(dense, x) if left else lane_matmul(x, dense)
+
+
+def _launch_band_matmul(x, k0, coef, tiles, splits, left: bool, count: bool = True):
+    """One launch of csrc/band_matmul.cu over the B lanes of ``x``, [B, K, Q]
+    for a left operator or [B, Q, K] for a right one, each lane row-major
+    (any lane stride: a slice of rows needs no copy); returns [B, lines, Q]
+    or [B, Q, lines].  ``count``: add it to LAUNCHES."""
+    if x.dtype != f32 or x.ndim != 3:
+        raise ValueError(f"band_matmul: expected float32 [B, ., .] lanes, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.stride(2) != 1 or x.stride(1) != x.shape[2]:
+        x = x.contiguous()
+    B = x.shape[0]
+    lines, taps = coef.shape
+    K, Q = (x.shape[1], x.shape[2]) if left else (x.shape[2], x.shape[1])
+    _check(k0, i32, (lines,), "band_matmul k0")
+    _check(coef, f32, (lines, taps), "band_matmul coef")
+    _check(tiles, i32, (tiles.shape[0], 3), "band_matmul tiles")
+    _check(splits, i32, (1,), "band_matmul splits")
+    out = torch.empty((B, lines, Q) if left else (B, Q, lines), dtype=f32, device=x.device)
+    err = _build.load().rk_band_matmul(_ptr(x), x.stride(0), _ptr(k0), _ptr(coef), _ptr(tiles),
+                                       tiles.shape[0], _ptr(splits), _ptr(out), B, K, Q, lines,
+                                       taps, int(left), _stream(x))
+    _raise_on(err, "band_matmul")
+    if count:
+        LAUNCHES["band_matmul"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
 # The step's kernels as PyTorch operators.  The unbatched call launches one
 # lane; the vmap rule launches once over every lane of a torch.func.vmap
 # (parallel/batch.py), with the lane axis first and contiguous.
@@ -1277,3 +1394,21 @@ def _launch_chol_inverse(m: torch.Tensor) -> torch.Tensor:
     _raise_on(err, "chol_inverse")
     LAUNCHES["chol_inverse"] += 1
     return out
+
+
+@custom_op("rebvio::band_matmul", mutates_args=())
+def _band_matmul_op(x: torch.Tensor, k0: torch.Tensor, coef: torch.Tensor,
+                    tiles: torch.Tensor, splits: torch.Tensor, left: bool) -> torch.Tensor:
+    return _launch_band_matmul(x[None], k0, coef, tiles, splits, left)[0]
+
+
+@_band_matmul_op.register_vmap
+def _band_matmul_lanes(info, in_dims, x, k0, coef, tiles, splits, left):
+    """The lanes are ``x``'s; the band is one operator for every lane and is
+    read by each lane in place (not expanded to B copies)."""
+    if any(d is not None for d in in_dims[1:5]):
+        raise ValueError("band_matmul: the band operator must be the same for every lane")
+    if not _on_cuda(x):
+        raise ValueError("rebvio kernels under vmap take CUDA tensors; CPU tensors go to the "
+                         "plain versions")
+    return _launch_band_matmul(x.movedim(in_dims[0], 0), k0, coef, tiles, splits, left), 0

@@ -44,7 +44,8 @@ PORTED = {"att_flood": ("att_flood_kernel",),
           "reg_ekf": ("match_reg_ekf",),
           "reg_ekf_alone": ("reg_ekf_alone",),
           "estimate_bias": ("estimate_bias_kernel",),
-          "chol_inverse": ("chol_inverse_kernel",)}
+          "chol_inverse": ("chol_inverse_kernel",),
+          "band_matmul": ("band_matmul_left_kernel", "band_matmul_right_kernel")}
 
 
 def _union_us(intervals):

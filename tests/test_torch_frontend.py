@@ -1,9 +1,12 @@
 """The port's frontend against the JAX package on synthetic frames at the
 small preset: the band matrices, the scale space, and detection with its
-seed stack.  Integer planes and the keyline count match exactly."""
+seed stack.  Integer planes and the keyline count match exactly.  Then the
+band storage of the operators and the band product's CPU paths
+(kernels.band_matmul), at the small preset and at EuRoC's 480x752."""
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 
@@ -19,7 +22,7 @@ from torch_helpers import small_configs, t2n, to_np  # noqa: E402
 from rebvio_tpu.data import synthetic as jsyn  # noqa: E402
 from rebvio_tpu.ops import edge_detect as jED, scale_space as jSS  # noqa: E402
 from rebvio_tpu.pipeline import frontend_matrices as jmats  # noqa: E402
-from rebvio_tpu_torch.ops import edge_detect as tED, scale_space as tSS  # noqa: E402
+from rebvio_tpu_torch.ops import edge_detect as tED, kernels, scale_space as tSS  # noqa: E402
 from rebvio_tpu_torch.pipeline import frontend_matrices as tmats  # noqa: E402
 
 
@@ -33,7 +36,8 @@ def frames():
 def test_band_matrices_identical(frames):
     _, jc, tc = frames
     j = to_np(jmats(jc))
-    t = {k: t2n(v) for k, v in tmats(tc, "cpu")._asdict().items()}
+    mats = tmats(tc, "cpu")
+    t = {k: t2n(getattr(mats, k)) for k in tSS.OPERATORS}
     assert j.keys() == t.keys()
     for k in j:
         np.testing.assert_array_equal(t[k], j[k], err_msg=k)
@@ -93,3 +97,132 @@ def test_autogain_threshold_matches_jax(frames):
             b = tED.autogain_threshold(torch.tensor(thr), torch.tensor(count, dtype=torch.int32),
                                        tc.detector)
             assert float(b) == float(a)
+
+
+# ---- the band storage and kernels.band_matmul's CPU paths
+
+BAND_GEOMETRIES = [(48, 64), (480, 752)]
+
+
+@functools.lru_cache(maxsize=None)
+def band_mats(rows: int, cols: int):
+    return tSS.ScaleSpaceParams(rows, cols).matrices("cpu")
+
+
+def band_operand(mats, name: str, lanes=(), seed: int = 0) -> torch.Tensor:
+    """A random dense operand of operator ``name``: [depth, cols] for a left
+    operator, [rows, depth] for a right one, with ``lanes`` leading."""
+    band = mats.bands[name]
+    rows, cols = mats.S5H.shape[0], mats.S5W.shape[0]
+    shape = (band.depth, cols) if band.left else (rows, band.depth)
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(*lanes, *shape, generator=g) * 50.0
+
+
+def dense_product(mats, name: str, x: torch.Tensor) -> torch.Tensor:
+    op = getattr(mats, name)
+    return op @ x if mats.bands[name].left else x @ op
+
+
+def band_kernel_emulation(x: np.ndarray, band) -> np.ndarray:
+    """csrc/band_matmul.cu's indexing in float64: each tile stages
+    BAND_TILE_LINES + taps - 1 rows of x's band axis from its first k (zeros
+    past x's edge), and each of its lines takes ``taps`` of them from its
+    offset into that span."""
+    k0, coef, tiles = t2n(band.k0), t2n(band.coef).astype(np.float64), t2n(band.tiles)
+    lines, taps = coef.shape
+    span = kernels.BAND_TILE_LINES + taps - 1
+    xk = x if band.left else x.T                    # [depth, free]
+    padded = np.zeros((xk.shape[0] + span, xk.shape[1]))
+    padded[:xk.shape[0]] = xk
+    out = np.zeros((lines, xk.shape[1]))
+    for first, n, kbase in tiles:
+        staged = padded[kbase:kbase + span]
+        for line in range(first, first + n):
+            off = k0[line] - kbase
+            assert 0 <= off and off + taps <= span
+            out[line] = coef[line] @ staged[off:off + taps]
+    return out if band.left else out.T
+
+
+@pytest.mark.parametrize("geometry", BAND_GEOMETRIES, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("name", tSS.OPERATORS)
+def test_band_storage_rebuilds_operator(geometry, name):
+    """Each operator's band holds all of it: rebuilt densely from (k0, coef)
+    it is the float32 matrix exactly; every line's run of taps lies inside
+    the matrix; the tiles take every line once, in order, each tile's runs
+    inside the span its block stages."""
+    mats = band_mats(*geometry)
+    band = mats.bands[name]
+    dense = t2n(getattr(mats, name))
+    m = dense if band.left else dense.T
+    k0, coef, tiles = t2n(band.k0), t2n(band.coef), t2n(band.tiles)
+    lines, taps = coef.shape
+    assert m.shape == (lines, band.depth) and band.left == (name in tSS.LEFT_OPERATORS)
+    assert k0.min() >= 0 and (k0 + taps).max() <= band.depth
+    rebuilt = np.zeros_like(m)
+    rebuilt[np.arange(lines)[:, None], k0[:, None] + np.arange(taps)] = coef
+    np.testing.assert_array_equal(rebuilt, m)
+    assert np.array_equal(tiles[:, 0], np.concatenate([[0], np.cumsum(tiles[:-1, 1])]))
+    assert tiles[:, 1].sum() == lines and tiles[:, 1].max() <= kernels.BAND_TILE_LINES
+    for first, n, kbase in tiles:
+        run = k0[first:first + n]
+        assert run.min() == kbase
+        assert run.max() + taps - kbase <= kernels.BAND_TILE_LINES + taps - 1
+
+
+@pytest.mark.parametrize("geometry", BAND_GEOMETRIES, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("name", tSS.OPERATORS)
+def test_band_kernel_indexing_is_the_product(geometry, name):
+    """The kernel's tiles, staging and offsets, emulated in float64, give
+    the dense product (summed in another order, so to float64 rounding)."""
+    mats = band_mats(*geometry)
+    x = t2n(band_operand(mats, name)).astype(np.float64)
+    op = t2n(getattr(mats, name)).astype(np.float64)
+    want = op @ x if mats.bands[name].left else x @ op
+    got = band_kernel_emulation(x, mats.bands[name])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", tSS.OPERATORS)
+def test_band_matmul_plain_is_the_dense_product(name):
+    """On CPU tensors kernels.band_matmul is the dense product bit for bit,
+    launching nothing; mxu_dot's bf16 path rounds the operands first."""
+    mats = band_mats(48, 64)
+    x = band_operand(mats, name)
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(kernels.band_matmul(x, getattr(mats, name), mats.bands[name]),
+                       dense_product(mats, name, x))
+    assert torch.equal(tSS.mxu_dot(mats, name, x, False), dense_product(mats, name, x))
+    rounded = mats._replace(**{name: tSS._bf16(getattr(mats, name))})
+    assert torch.equal(tSS.mxu_dot(mats, name, x, True),
+                       dense_product(rounded, name, tSS._bf16(x)))
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", tSS.OPERATORS)
+def test_band_matmul_vmap_cpu_lanes_are_lane_products(name):
+    """torch.func.vmap of kernels.band_matmul over CPU lanes: each lane is
+    the unbatched dense product bit for bit (one product a lane)."""
+    mats = band_mats(48, 64)
+    xs = band_operand(mats, name, lanes=(3,), seed=1)
+    got = torch.func.vmap(
+        lambda x: kernels.band_matmul(x, getattr(mats, name), mats.bands[name]))(xs)
+    want = torch.stack([dense_product(mats, name, x) for x in xs])
+    assert torch.equal(got, want)
+
+
+def test_band_matmul_operator_refuses_cpu_lanes_and_a_batched_band():
+    """The operator's vmap rule launches the kernel or raises: CPU lanes go
+    to the plain version, and a band that differs by lane is refused."""
+    mats = band_mats(48, 64)
+    band = mats.bands["YH"]
+    xs = band_operand(mats, "YH", lanes=(2,))
+    op = torch.ops.rebvio.band_matmul
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        torch.func.vmap(lambda x: op(x, band.k0, band.coef, band.tiles, band.splits, True))(xs)
+    with pytest.raises(ValueError, match="same for every lane"):
+        torch.func.vmap(lambda x, c: op(x, band.k0, c, band.tiles, band.splits, True))(
+            xs, band.coef.expand(2, *band.coef.shape))
+    with pytest.raises(ValueError, match="depth"):
+        kernels.band_matmul(xs[0].T, mats.YH, band)
