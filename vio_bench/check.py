@@ -53,10 +53,18 @@ Each number is judged twice over a run's sampled steps:
   (four of 32).
 * ``<number>.worst``: the largest over every sampled step, the first
   frames too, judged where the control's smallest worst step stands 30
-  times or more above the worst sound step seen in either cell (K2's
+  times or more above the worst sound step seen in any cell (K2's
   rare step has a long tail), with a limit a third of the control's: a
   gross gap on a single step fails it, and a NaN or an infinity fails
-  ``exact_gap.worst``."""
+  ``exact_gap.worst``.
+
+A cell whose product is more than a VIO step (a map, a trajectory refined
+after the fact) holds it to a plain reference by product checks of its
+traffic loop (``harness.Outcome.products``).  The loop declares the names
+of their numbers (``harness.loop_numbers``); each is summarized like a step
+number over the items the checks return, ``<number>`` and
+``<number>.worst``, and judged by the cell file's limits.  A limit that
+no step and no product check gives a number for fails."""
 
 from __future__ import annotations
 
@@ -191,15 +199,29 @@ def record(odometry: Dict[str, object], state: Dict[str, object]) -> Dict[str, n
     return out
 
 
-def summarize(per_step: List[Dict[str, float]], tracking: Sequence[bool]) -> Dict[str, float]:
-    """Each number's STEP_QUANTILE over the tracking steps (a sampled value,
-    numpy's "higher" method; infinity sorts last) and, as
-    ``<number>.worst``, its largest over every step."""
+def summarize(per_step: List[Dict[str, float]], tracking: Sequence[bool],
+              names: Sequence[str] = NUMBERS) -> Dict[str, float]:
+    """Each of ``names``' STEP_QUANTILE over the tracking steps (a sampled
+    value, numpy's "higher" method; infinity sorts last) and, as
+    ``<number>.worst``, its largest over every step.  A number that no step
+    gives is left out (its limit, if any, then fails: ``verdict``)."""
     tracked = [s for s, t in zip(per_step, tracking) if t] or per_step
     out = {}
-    for k in NUMBERS:
-        out[k] = float(np.quantile([s[k] for s in tracked], STEP_QUANTILE, method="higher"))
-        out[k + WORST] = float(max(s[k] for s in per_step))
+    for k in names:
+        xs = [s[k] for s in tracked if k in s]
+        if xs:
+            out[k] = float(np.quantile(xs, STEP_QUANTILE, method="higher"))
+            out[k + WORST] = float(max(s[k] for s in per_step if k in s))
+    return out
+
+
+def summarize_all(per_step: List[Dict[str, float]], tracking: Sequence[bool],
+                  per_product: List[Dict[str, float]], products: Sequence[str]
+                  ) -> Dict[str, float]:
+    """The step numbers (``summarize``) and, summarized the same way over
+    every item a product check returned, the loop's declared ``products``."""
+    out = summarize(per_step, tracking)
+    out.update(summarize(per_product, [True] * len(per_product), products))
     return out
 
 
@@ -212,11 +234,15 @@ def all_limits(cell: dict) -> Dict[str, float]:
 
 
 def verdict(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
-    """Every number within its limit (a number without a limit is
-    reported, not judged)."""
-    return all(numbers[k] <= lim for k, lim in limits.items())
+    """Every limit met by its number (a number without a limit is reported,
+    not judged; a limit without a number fails: a check that stopped
+    producing its number cannot pass)."""
+    return all(k in numbers and numbers[k] <= lim for k, lim in limits.items())
 
 
 def lines(numbers: Dict[str, float], limits: Dict[str, Optional[float]]) -> Dict[str, list]:
-    """name -> [number, limit] for the result line and standard error."""
-    return {k: [numbers[k], limits.get(k)] for k in numbers}
+    """name -> [number, limit] for the result line and standard error; a
+    limit that no number met reads [None, limit]."""
+    out = {k: [numbers[k], limits.get(k)] for k in numbers}
+    out.update({k: [None, lim] for k, lim in limits.items() if k not in numbers})
+    return out

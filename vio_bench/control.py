@@ -1,12 +1,13 @@
 """Readings for the limits of ``cells/<cell>.json``: for each seed, a run of
 the cell (a window of ``--seconds``, the cell's own load and sample) and,
-for every sampled step, both the program and the control held to the
-reference.  The control is the reference itself computed one precision
-below the configuration's (``reference.oracle.tf32``: TF32 products where
-the configuration states float32 with TF32 off), put in the program's
-place.  One JSON line a seed; the benchmark's own runs never run this.
-Each seed's runner leaves its CUDA graphs' memory pool in the process, so
-give a process a few dozen seeds: some 85 fleet seeds fill the card.
+for every sampled step and every item a product check returns, both the
+program and the control held to the reference.  The control is the
+reference itself computed one precision below the configuration's
+(``reference.oracle.tf32``: TF32 products where the configuration states
+float32 with TF32 off), put in the program's place.  One JSON line a
+seed; the benchmark's own runs never run this.  Each seed's runner leaves
+its CUDA graphs' memory pool in the process, so give a process a few dozen
+seeds: some 85 fleet seeds fill the card.
 
     python -m vio_bench.control --workload <cell> --seeds 1,2,3 --seconds 3
 """
@@ -39,7 +40,9 @@ def main(argv=None) -> int:
                                          "metrics": res["metrics"], "notes": res["notes"],
                                          "per_step": res["per_step"],
                                          "control_per_step": res["control_per_step"],
-                                         "tracking": res["tracking"]})),
+                                         "tracking": res["tracking"],
+                                         "per_product": res["per_product"],
+                                         "control_per_product": res["control_per_product"]})),
               flush=True)
         t = time.perf_counter()
     return 0

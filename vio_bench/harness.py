@@ -1,6 +1,6 @@
 """The parts of a run that every cell shares: the run's context, the
-samples a traffic loop hands back, the check against the reference, and the
-result object."""
+samples and product checks a traffic loop hands back, the check against
+the reference, and the result object."""
 
 import gc
 import importlib
@@ -8,7 +8,7 @@ import math
 import subprocess
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,8 +50,17 @@ class Sample:
         self.stream, self.i, self.before, self.after = stream, i, before, after
 
 
+# one item's numbers against its plain reference: check(ctx, control) ->
+# (the program's {number: gap}, the TF32 control's, or None unless control)
+ProductCheck = Callable[[Ctx, bool], Tuple[Dict[str, float], Optional[Dict[str, float]]]]
+
+
 class Outcome:
-    """What a traffic loop hands back."""
+    """What a traffic loop hands back: besides the steps to hold to the
+    reference (``samples``), the checks of what else its timed path produced
+    (``products``), each called once the window has closed and the
+    program's state is freed, giving numbers that its loop declares
+    (``NUMBERS`` of ``loops/<kind>.py``; ``loop_numbers``)."""
 
     def __init__(self):
         self.setup_s: float = None
@@ -59,6 +68,7 @@ class Outcome:
         self.failed = 0
         self.metrics: Dict[str, float] = {}
         self.samples: List[Sample] = []
+        self.products: List[ProductCheck] = []
         self.memory_peak_bytes = 0
         self.trace: Optional[Trace] = None
         self.notes: Dict[str, object] = {}
@@ -110,8 +120,35 @@ def reference_numbers(ctx: Ctx, samples: List[Sample], control: bool = False):
     return prog, (ctrl if control else None)
 
 
+def product_numbers(ctx: Ctx, checks: List[ProductCheck], names: tuple, control: bool = False):
+    """Each product check's numbers: (the program's, the control's or
+    None), one dict an item.  A number its loop did not declare raises."""
+    prog, ctrl = [], []
+    for c in checks:
+        p, q = c(ctx, control)
+        for got in (p, q or {}):
+            if not set(got) <= set(names):
+                raise ValueError(f"a product check gave {sorted(set(got) - set(names))}, "
+                                 f"which its loop does not declare ({names})")
+        prog.append(p)
+        ctrl.append(q)
+    return prog, (ctrl if control else None)
+
+
 def loop(kind: str):
     return importlib.import_module(f"vio_bench.loops.{kind}")
+
+
+def loop_numbers(mod) -> tuple:
+    """The numbers a loop module declares for its product checks (its
+    ``NUMBERS``): each is new, given once, and not a ``.worst``."""
+    names = tuple(getattr(mod, "NUMBERS", ()))
+    bad = sorted({n for n in names if n in check.NUMBERS or n.endswith(check.WORST)
+                  or names.count(n) > 1})
+    if bad:
+        raise ValueError(f"product numbers {bad} clash with the step numbers, end in "
+                         f"{check.WORST!r} or are declared twice")
+    return names
 
 
 def smi() -> str:
@@ -126,7 +163,9 @@ def smi() -> str:
 
 def run_cell(ctx: Ctx, control: bool = False) -> dict:
     """Drive the cell, check it, and return the result object."""
-    out = loop(ctx.traffic["kind"]).run(ctx)
+    mod = loop(ctx.traffic["kind"])
+    names = loop_numbers(mod)
+    out = mod.run(ctx)
     limits = check.all_limits(ctx.cell.cell)
     # the program's state is freed before the reference runs
     gc.collect()
@@ -134,9 +173,10 @@ def run_cell(ctx: Ctx, control: bool = False) -> dict:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
     per_step, ctrl = reference_numbers(ctx, out.samples, control)
+    per_product, ctrl_product = product_numbers(ctx, out.products, names, control)
     out.notes["check_s"] = time.perf_counter() - t_check
     tracking = [s.before is not None for s in out.samples]
-    numbers = check.summarize(per_step, tracking)
+    numbers = check.summarize_all(per_step, tracking, per_product, names)
     correct = check.verdict(numbers, limits)
     res = {"correct": bool(correct), "attempted": out.attempted, "failed": out.failed}
     if ctx.trace:
@@ -161,10 +201,13 @@ def run_cell(ctx: Ctx, control: bool = False) -> dict:
     res["device"] = dev
     res["notes"] = out.notes
     if control:
-        res["control"] = check.lines(check.summarize(ctrl, tracking), limits)
+        res["control"] = check.lines(
+            check.summarize_all(ctrl, tracking, ctrl_product, names), limits)
         res["tracking"] = tracking
         res["control_per_step"] = ctrl
         res["per_step"] = per_step
+        res["control_per_product"] = ctrl_product
+        res["per_product"] = per_product
     res["checks"] = check.lines(numbers, limits)
     return res
 

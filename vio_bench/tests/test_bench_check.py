@@ -89,10 +89,16 @@ def run_small(small_cell, name, traffic, seconds, control=False):
     ("rw.fleet8", FLEET, 0.0, "batched", sigma_unchanged),
     ("rw.fleet8", FLEET, 0.0, "batched", sab_cov_unchanged),
     ("rw.fleet8", FLEET, 0.0, "batched", one_lane_tracking),
+    ("parity.fleet8", FLEET, 0.0, "batched", None),
+    ("parity.fleet8", FLEET, 0.0, "batched", unchanged),
+    ("parity.fleet8", FLEET, 0.0, "batched", half_batch),
+    ("parity.fleet8", FLEET, 0.0, "batched", altered),
+    ("parity.fleet8", FLEET, 0.0, "batched", one_lane_tracking),
 ], ids=["live-sound", "live-unchanged", "live-altered", "live-sigma-unchanged",
         "live-sab-cov-unchanged", "fleet-sound", "fleet-unchanged", "fleet-half-batch",
         "fleet-altered", "fleet-sigma-unchanged", "fleet-sab-cov-unchanged",
-        "fleet-one-lane-tracking"])
+        "fleet-one-lane-tracking", "parity-fleet-sound", "parity-fleet-unchanged",
+        "parity-fleet-half-batch", "parity-fleet-altered", "parity-fleet-one-lane-tracking"])
 def test_broken_timed_path_is_not_correct(small_cell, monkeypatch, name, traffic, seconds, mode,
                                           fault):
     from rebvio_tpu_torch import runner
@@ -107,8 +113,9 @@ def test_broken_timed_path_is_not_correct(small_cell, monkeypatch, name, traffic
 
 
 @pytest.mark.parametrize("name,traffic,seconds", [("parity.live20", LIVE, 0.5),
-                                                  ("rw.fleet8", FLEET, 0.0)],
-                         ids=["live", "fleet"])
+                                                  ("rw.fleet8", FLEET, 0.0),
+                                                  ("parity.fleet8", FLEET, 0.0)],
+                         ids=["live", "fleet", "parity-fleet"])
 def test_control_is_not_correct(small_cell, name, traffic, seconds):
     res = run_small(small_cell, name, traffic, seconds, control=True)
     limits = {k: lim for k, (_, lim) in res["control"].items() if lim is not None}

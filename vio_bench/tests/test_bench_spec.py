@@ -8,11 +8,13 @@ import hashlib
 import json
 import re
 import shutil
+import sys
+import types
 from pathlib import Path
 
 import pytest
 
-from vio_bench import check, spec
+from vio_bench import check, harness, spec
 from vio_bench.reference import oracle
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -67,8 +69,27 @@ def test_cell_resolves_to_its_files(name):
     # configuration states
     if "session_frames" in c.traffic:
         assert c.traffic["session_frames"] == c.config["sequence_frames"]
-    assert c.cell["limits"] and set(check.all_limits(c.cell)) <= set(
-        check.summarize([dict.fromkeys(check.NUMBERS, 0.0)], [True]))
+    # a limit holds a step number or a number that the cell's loop declares
+    assert c.cell["limits"] and set(check.all_limits(c.cell)) <= judged(c.traffic["kind"])
+
+
+def judged(kind: str) -> set:
+    """Every number a cell of a loop of ``kind`` can give a limit."""
+    names = harness.loop_numbers(harness.loop(kind))
+    return set(check.summarize_all([dict.fromkeys(check.NUMBERS, 0.0)], [True],
+                                   [dict.fromkeys(names, 0.0)], names))
+
+
+def test_a_limit_needs_a_number_that_is_produced(monkeypatch):
+    """A cell's limit on a number that neither the steps nor its loop's
+    product checks give is refused; a declared one is accepted."""
+    mod = types.ModuleType("vio_bench.loops.stub_declares")
+    mod.NUMBERS = ("map_gap",)
+    monkeypatch.setitem(sys.modules, mod.__name__, mod)
+    assert {"map_gap", "map_gap.worst", "pose_gap_mm.worst"} <= judged("stub_declares")
+    for kind in ("closed_loop_fleet", "stub_declares"):
+        assert "ghost_gap" not in judged(kind)
+    assert "map_gap" not in judged("closed_loop_fleet")
 
 
 def test_config_file_states_every_key():
